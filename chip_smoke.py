@@ -9,7 +9,9 @@ Run it from the repository root; it needs one card and takes no arguments.  Phas
 1. build: compile ``microaligner_tpu_torch/csrc/*.cu`` with nvcc for sm_90a;
 2. kernels: K1-K4 against their plain PyTorch versions on the card, at the
    main path's band shapes (4296 x 4296, 1256 x 20680) and edge cases, with
-   CUDA-event times of kernel and plain version;
+   CUDA-event times of kernel and plain version; K5 (N planes, one flow)
+   against its plain version and against N K1 launches, bit for bit, at 8
+   planes of a 4096^2 band slab, 2 of a 20480^2 one and the edge shapes;
 3. parity: a 1024^2 pair through ``OptFlowRegistrator.register_device`` on
    the card against the same pair through the plain versions on the CPU;
 4. main path: the CLI's cycle loop (z-max projection, ``register_device``,
@@ -17,20 +19,39 @@ Run it from the repository root; it needs one card and takes no arguments.  Phas
    3-z u16 4096^2 stack, then a 2-cycle 20480^2 u8 register and a one-plane
    apply, with stage times, peak device memory and the kernels' launch counts,
    and one 4096^2 register under torch.profiler (device time by kernel and
-   the device's busy share; the table goes to ``chiprun_out/``).
+   the device's busy share; the table goes to ``chiprun_out/``);
+5. z-stack apply: 8 u16 4096^2 planes warped by one flow through
+   ``_apply_flow_planes`` (K5), which must agree bit for bit with
+   ``_apply_flow_plane`` on each plane (K1);
+6. the CLI: that 4096^2 stack written as an OME CycleStack and run through
+   ``microaligner_tpu_torch.__main__.main`` in process and once more as
+   ``python -m microaligner_tpu_torch``; then a 2-cycle x 2-channel 20480^2
+   u16 CycleStack through the CLI in process.  Each output is checked: its
+   TCZYX shape and OME sizes, the reference cycle bit for bit, and the
+   registered planes' interior MSE to cycle 1 below a quarter of the
+   unregistered MSE.
 
-The last lines are the card's name and power limit as nvidia-smi prints
-them, a JSON object with one entry per kernel, and ``{"ok": true, ...}``.
-Any failed check raises and the script exits non-zero.  Without a CUDA
-device it exits non-zero before printing anything.
+Every path of phases 4-6 runs with the kernels' launch counters set to 0
+just before it and read just after: each kernel of the path must have
+launched and no plain version may have run.  The last lines are the card's
+name and power limit as nvidia-smi prints them, a JSON object with one entry
+per kernel, and ``{"ok": true, ...}``.  Any failed check raises and the
+script exits non-zero.  Without a CUDA device it exits non-zero before
+printing anything.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -38,7 +59,8 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-TOL = {"K1": "atol 1e-5", "K2": "1e-5*max|plain|+1e-6", "K3": "atol 1e-4 px", "K4": "1e-5*max|plain|+1e-6"}
+TOL = {"K1": "atol 1e-5", "K2": "1e-5*max|plain|+1e-6", "K3": "atol 1e-4 px", "K4": "1e-5*max|plain|+1e-6",
+       "K5": "0: bit-equal to its plain version and to one K1 launch a plane"}
 
 
 class CheckFailed(RuntimeError):
@@ -74,6 +96,39 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+class Counters:
+    """The launch counters of every kernel wrapper and the call counters of
+    their plain versions: ``reset()`` just before a path, ``read()`` just
+    after it."""
+
+    def __init__(self):
+        from microaligner_tpu_torch.ops import kernel_agg, kernel_matrices, kernel_poly, kernel_sample
+
+        self.wrappers = {"K1": kernel_sample.sample_displaced, "K2": kernel_poly.poly_pair_m,
+                         "K3": kernel_agg.smooth5_solve, "K4": kernel_matrices.update_matrices,
+                         "K5": kernel_sample.sample_displaced_multi}
+        self.plains = {"K1": kernel_sample.sample_displaced_plain, "K2": kernel_poly.poly_pair_m_plain,
+                       "K3": kernel_agg.smooth5_solve_plain, "K4": kernel_matrices.update_matrices_plain,
+                       "K5": kernel_sample.sample_displaced_multi_plain}
+
+    def reset(self) -> None:
+        for fn in (*self.wrappers.values(), *self.plains.values()):
+            if hasattr(fn, "launches"):
+                fn.launches = 0
+            if hasattr(fn, "calls"):
+                fn.calls = 0
+
+    def read(self, path: str, kernels) -> dict:
+        """Launches of every kernel since ``reset``; raises unless each of
+        ``kernels`` launched and no plain version ran."""
+        launches = {k: w.launches for k, w in self.wrappers.items()}
+        plain = {k: f.calls for k, f in self.plains.items()}
+        log(f"[{path}] kernel launches {launches}; plain versions called {plain}")
+        require(all(launches[k] > 0 for k in kernels), f"{path}: a kernel of the path was never launched")
+        require(not any(plain.values()), f"{path}: a plain version ran on the path")
+        return launches
 
 
 def texture(rng, h, w, dev, sigmas=(2.0, 6.0)) -> torch.Tensor:
@@ -214,6 +269,63 @@ def check_kernels(dev, rng) -> dict:
     return results
 
 
+def check_k5(dev, rng, planes=((8,) + BAND_SHAPES[0], (2,) + BAND_SHAPES[1])) -> dict:
+    """K5 against its plain version and against N K1 launches (one a plane,
+    the per-plane apply's path), bit for bit, under a +-20 px random flow."""
+    from microaligner_tpu_torch.ops import kernel_sample as ks
+
+    res = {"max_abs_err": 0.0}
+    cases = [(n, h, w, label, True) for n, h, w, label in planes]
+    cases += [(3, h, w, label, False) for h, w, label in EDGE_SHAPES]
+    for n, h, w, label, timed in cases:
+        imgs = torch.from_numpy(rng.random((n, h, w), dtype=np.float32)).to(dev)
+        flow = torch.from_numpy(((rng.random((2, h, w)) - 0.5) * 40).astype(np.float32)).to(dev)
+        fx, fy = flow[0].contiguous(), flow[1].contiguous()
+        got = ks.sample_displaced_multi(imgs, fx, fy)
+        want = ks.sample_displaced_multi_plain(imgs, fx, fy)
+        per_plane = torch.stack([ks.sample_displaced(imgs[i : i + 1], fx[None], fy[None])[0]
+                                 for i in range(n)])
+        err = max(float((got - want).abs().max()), float((got - per_plane).abs().max()))
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        require(torch.equal(got, want) and torch.equal(got, per_plane),
+                f"K5 {label}: not bit-equal to its plain version and to {n} K1 launches (err {err})")
+        t = ""
+        if timed:
+            def kern():
+                return ks.sample_displaced_multi(imgs, fx, fy)
+
+            def plain():
+                return ks.sample_displaced_multi_plain(imgs, fx, fy)
+
+            def k1s():
+                for i in range(n):
+                    ks.sample_displaced(imgs[i : i + 1], fx[None], fy[None])
+
+            # order plain, kernel, N x K1, kernel, N x K1, plain
+            p1, k_1, n1 = cuda_ms(plain, 3), cuda_ms(kern, 20), cuda_ms(k1s, 20)
+            k_2, n2, p2 = cuda_ms(kern, 20), cuda_ms(k1s, 20), cuda_ms(plain, 3)
+            key = "" if label.startswith("4096") else "_20k_band"
+            res["ms" + key], res["k1_x%d_ms" % n + key], res["plain_ms" + key] = (
+                min(k_1, k_2), min(n1, n2), min(p1, p2))
+            t = (f" kernel {min(k_1, k_2):.4f} ms, {n} x K1 {min(n1, n2):.4f} ms, "
+                 f"plain {min(p1, p2):.4f} ms")
+        log(f"[kernels] K5 {label} {n}x{h}x{w}: max_abs_err {err:.3e} ({TOL['K5']}){t}")
+        del imgs, flow, fx, fy, got, want, per_plane
+    for bad in (lambda: ks.sample_displaced_multi(torch.zeros((2, 4, 4), device=dev),
+                                                  torch.zeros((2, 4, 4), device=dev),
+                                                  torch.zeros((2, 4, 4), device=dev)),
+                lambda: ks.sample_displaced_multi(torch.zeros((2, 4, 4), device=dev, dtype=torch.float16),
+                                                  torch.zeros((4, 4), device=dev),
+                                                  torch.zeros((4, 4), device=dev))):
+        try:
+            bad()
+        except (TypeError, ValueError):
+            pass
+        else:
+            raise CheckFailed("K5's wrapper accepted an input its kernel does not take")
+    return res
+
+
 # -- phase 3 ---------------------------------------------------------------
 
 def parity_run(dev, rng, n=1024) -> dict:
@@ -310,9 +422,10 @@ def profile_register(reg, ref, mov, out_dir: Path) -> dict:
             "top": [(e.key, dev_us(e) / 1e3, e.count) for e in top]}
 
 
-def main_path(dev, rng, out_dir: Path, n_stack=4096, n_big=20480, tile=1000,
-              overlap=100) -> dict:
-    from microaligner_tpu_torch.ops import kernel_agg, kernel_matrices, kernel_poly, kernel_sample
+def main_path(dev, rng, out_dir: Path, counters: Counters, n_stack=4096, n_big=20480, tile=1000,
+              overlap=100):
+    """PR 1's path; returns its report and the host planes of the 4096^2
+    stack [cycle][channel][z], which the CLI phase writes to a file."""
     from microaligner_tpu_torch.ops.filters import minmax_normalize_u8
     from microaligner_tpu_torch.optflow.registrator import OptFlowRegistrator
     from microaligner_tpu_torch.optflow.warper import Warper
@@ -320,10 +433,6 @@ def main_path(dev, rng, out_dir: Path, n_stack=4096, n_big=20480, tile=1000,
     from microaligner_tpu_torch.tiles import TileGrid
     from microaligner_tpu_torch.utils.pages import max_project_u8
 
-    wrappers = {"K1": kernel_sample.sample_displaced, "K2": kernel_poly.poly_pair_m,
-                "K3": kernel_agg.smooth5_solve, "K4": kernel_matrices.update_matrices}
-    plains = [kernel_sample.sample_displaced_plain, kernel_poly.poly_pair_m_plain,
-              kernel_agg.smooth5_solve_plain, kernel_matrices.update_matrices_plain]
     # defaults: config_examples/config_cycle_stack_optflow_only.yaml
 
     def registrator():
@@ -341,9 +450,7 @@ def main_path(dev, rng, out_dir: Path, n_stack=4096, n_big=20480, tile=1000,
     planes, warps = cycle_stack(dev, rng, n_stack)
     log(f"[main] synthetic 3x2x3 u16 {n_stack}^2 stack made in {time.perf_counter() - t0:.2f} s")
 
-    for w in wrappers.values():
-        w.launches = 0
-    plain_calls = [p.calls for p in plains]
+    counters.reset()
     torch.cuda.reset_peak_memory_stats(dev)
     report = {"stack_4096": []}
 
@@ -403,7 +510,7 @@ def main_path(dev, rng, out_dir: Path, n_stack=4096, n_big=20480, tile=1000,
         f"peak device memory {report['stack_4096_peak_gib']:.2f} GiB")
     report["profile_4096"] = profile_register(
         registrator(), ref0, max_project_u8(planes[1][0], dev), out_dir)
-    del planes, applied, ref_img, ref0, flow
+    del applied, ref_img, ref0, flow
 
     n = n_big
     t0 = time.perf_counter()
@@ -444,12 +551,215 @@ def main_path(dev, rng, out_dir: Path, n_stack=4096, n_big=20480, tile=1000,
     require(applied.dtype == torch.uint16, applied.dtype)
     del flow, warped, applied, ref, mov
 
-    report["launches"] = {k: w.launches for k, w in wrappers.items()}
-    report["plain_calls"] = [p.calls - c for p, c in zip(plains, plain_calls)]
-    log(f"[main] kernel launches {report['launches']}; plain versions called {report['plain_calls']}")
-    require(all(v > 0 for v in report["launches"].values()), "a kernel of the path was never launched")
-    require(not any(report["plain_calls"]), "a plain version ran on the main path")
-    return report
+    report["launches"] = counters.read("main", ("K1", "K2", "K3", "K4"))
+    return report, planes
+
+
+# -- phase 5 ---------------------------------------------------------------
+
+def zstack_apply(dev, rng, counters: Counters, n=4096, n_planes=8, tile=1000, overlap=100) -> dict:
+    """Config 4 of the JAX package's bench (``bench.py::bench_zstack_apply``):
+    8 u16 planes on the card warped by one flow through ``_apply_flow_planes``
+    (K5), held bit for bit against ``_apply_flow_plane`` on each plane (K1)."""
+    from microaligner_tpu_torch.pipeline.runner import _apply_flow_plane, _apply_flow_planes
+    from microaligner_tpu_torch.tiles import TileGrid
+
+    planes = torch.from_numpy(rng.integers(0, 65535, (n_planes, n, n)).astype(np.uint16)).to(dev)
+    ys = torch.arange(n, device=dev, dtype=torch.float32).view(n, 1).expand(n, n)
+    xs = torch.arange(n, device=dev, dtype=torch.float32).view(1, n).expand(n, n)
+    flow = torch.stack([2.0 * torch.sin(ys / 50), 1.5 * torch.cos(xs / 45)], dim=-1).contiguous()
+    grid = TileGrid.for_image((n, n), tile, overlap)
+
+    def per_plane():
+        return torch.stack([_apply_flow_plane(p, flow, grid, torch.uint16) for p in planes])
+
+    counters.reset()
+    multi = _apply_flow_planes(planes, flow, grid, torch.uint16)
+    torch.cuda.synchronize()
+    launches = counters.read("zstack", ("K5",))
+    require(launches["K1"] == 0, f"zstack: the z-stack apply launched K1 {launches['K1']} times")
+    require(multi.dtype == torch.uint16 and multi.shape == planes.shape, f"{multi.dtype} {tuple(multi.shape)}")
+    require(torch.equal(multi, per_plane()), "z-stack apply: K5 and K1 a plane differ")
+    # order per-plane, K5, K5, per-plane
+    t1 = cuda_ms(per_plane, 5)
+    m1 = cuda_ms(lambda: _apply_flow_planes(planes, flow, grid, torch.uint16), 5)
+    m2 = cuda_ms(lambda: _apply_flow_planes(planes, flow, grid, torch.uint16), 5)
+    t2 = cuda_ms(per_plane, 5)
+    res = {"multi_ms": min(m1, m2), "per_plane_ms": min(t1, t2), "launches": launches}
+    log(f"[zstack] {n_planes} u16 {n}^2 planes, one flow, tile {tile} overlap {overlap}: "
+        f"_apply_flow_planes (K5) {res['multi_ms']:.3f} ms, _apply_flow_plane a plane (K1) "
+        f"{res['per_plane_ms']:.3f} ms; outputs bit-equal")
+    return res
+
+
+# -- phase 6 ---------------------------------------------------------------
+
+def stack_ome(channels, h, w, nz) -> str:
+    chs = "".join(f'<Channel ID="Channel:0:{i}" Name="{n}" SamplesPerPixel="1"/>'
+                  for i, n in enumerate(channels))
+    return ('<?xml version="1.0" encoding="UTF-8"?>'
+            '<OME xmlns="http://www.openmicroscopy.org/Schemas/OME/2016-06"><Image ID="Image:0" Name="s">'
+            f'<Pixels ID="Pixels:0" DimensionOrder="XYZCT" Type="uint16" SizeT="1" SizeC="{len(channels)}" '
+            f'SizeZ="{nz}" SizeY="{h}" SizeX="{w}" PhysicalSizeX="0.5" PhysicalSizeXUnit="um" '
+            'PhysicalSizeY="0.5" PhysicalSizeYUnit="um">' + chs + "</Pixels></Image></OME>")
+
+
+def write_cycle_stack(path: Path, planes) -> None:
+    """planes[cycle][channel][z] (host u16) as one OME CycleStack, written
+    with the port's ``MemmapWriter``; channels are named ``cNN DAPI`` and
+    ``cNN Cy5``."""
+    from microaligner_tpu_torch.io import MemmapWriter
+
+    cycles, channels, nz = len(planes), len(planes[0]), len(planes[0][0])
+    h, w = planes[0][0][0].shape
+    names = [f"c{c + 1:02d} {('DAPI', 'Cy5', 'FITC')[ch]}" for c in range(cycles) for ch in range(channels)]
+    mm = MemmapWriter(path, (1, cycles * channels, nz, h, w), np.uint16,
+                      description=stack_ome(names, h, w, nz))
+    for c in range(cycles):
+        for ch in range(channels):
+            for z in range(nz):
+                mm[0, c * channels + ch, z] = planes[c][ch][z]
+    mm.close()
+
+
+def write_config(path: Path, stack: Path, out_dir: Path) -> None:
+    """The parameters of ``config_examples/config_cycle_stack_optflow_only.yaml``."""
+    import yaml
+
+    cfg = yaml.safe_load((ROOT / "config_examples" / "config_cycle_stack_optflow_only.yaml").read_text())
+    cfg["Input"]["InputImagePaths"] = {"CycleStack": str(stack)}
+    cfg["Output"]["OutputDir"] = str(out_dir)
+    path.write_text(yaml.dump(cfg, sort_keys=False))
+
+
+def run_cli_in_process(cfg: Path, dev) -> tuple:
+    """``__main__.main([cfg])`` on ``dev`` with the stage timers on; returns
+    (wall seconds, {stage: seconds})."""
+    from microaligner_tpu_torch.__main__ import main as cli_main
+
+    buf = io.StringIO()
+    os.environ["MICROALIGNER_TPU_PROFILE"] = "1"
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli_main([str(cfg)], device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("MICROALIGNER_TPU_PROFILE", None)
+    stages = {}
+    for name, secs in re.findall(r"^\[profile\] (.+): ([0-9.]+)s$", buf.getvalue(), re.M):
+        stages[name] = round(stages.get(name, 0.0) + float(secs), 4)
+    return wall, stages
+
+
+def check_cli_output(out: Path, planes, margin: int, label: str, dev) -> dict:
+    """The TCZYX stack the CLI wrote: shape and OME sizes, the reference
+    cycle bit for bit, and every registered plane's interior MSE to cycle 1
+    below a quarter of the unregistered MSE."""
+    from microaligner_tpu_torch.io import TiffFile
+    from microaligner_tpu_torch.io.ome import extract_pixels_info, str_to_xml
+
+    cycles, channels, nz = len(planes), len(planes[0]), len(planes[0][0])
+    h, w = planes[0][0][0].shape
+    res = {"mse_before": [], "mse_after": []}
+
+    def mse(a, b):
+        return interior_mse(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev), margin)
+
+    with TiffFile(out) as tf:
+        s = tf.series[0]
+        info = extract_pixels_info(str_to_xml(tf.ome_metadata))
+        want_shape = (cycles * channels, nz, h, w) if nz > 1 else (cycles * channels, h, w)
+        require(s.shape == want_shape and s.dtype == np.uint16, f"{label}: {s.shape} {s.dtype}")
+        require((int(info["SizeC"]), int(info["SizeZ"]), int(info["SizeT"])) == (cycles * channels, nz, 1),
+                f"{label}: OME sizes {info}")
+        for c in range(cycles):
+            for ch in range(channels):
+                for z in range(nz):
+                    page = tf.read_page((c * channels + ch) * nz + z)
+                    ref = planes[0][ch][z]
+                    if c == 0:
+                        require(np.array_equal(page, ref), f"{label}: reference plane {ch},{z} changed")
+                        continue
+                    before, after = mse(planes[c][ch][z], ref), mse(page, ref)
+                    res["mse_before"].append(before)
+                    res["mse_after"].append(after)
+                    require(after < 0.25 * before, f"{label}: cycle {c + 1} ch {ch} z {z} mse {before} -> {after}")
+    res["mse_ratio_max"] = max(a / b for a, b in zip(res["mse_after"], res["mse_before"]))
+    res["tczyx"] = (1, cycles * channels, nz, h, w)
+    return res
+
+
+def cli_4096(dev, planes, counters: Counters, work: Path) -> dict:
+    stack, out1, out2 = work / "stack_4096.ome.tif", work / "out_4096", work / "out_4096_subprocess"
+    write_cycle_stack(stack, planes)
+    write_config(work / "cfg_4096.yaml", stack, out1)
+    write_config(work / "cfg_4096_subprocess.yaml", stack, out2)
+    torch.cuda.reset_peak_memory_stats(dev)
+    counters.reset()
+    wall, stages = run_cli_in_process(work / "cfg_4096.yaml", dev)
+    launches = counters.read("cli_4096", ("K1", "K2", "K3", "K4"))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    res = check_cli_output(out1 / "optflow_reg_result_stack.tif", planes, 200, "cli 4096", dev)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "microaligner_tpu_torch", str(work / "cfg_4096_subprocess.yaml")],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    sub_wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"python -m microaligner_tpu_torch exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    same = (out1 / "optflow_reg_result_stack.tif").read_bytes() == (out2 / "optflow_reg_result_stack.tif").read_bytes()
+    require(same, "the CLI in a subprocess wrote another file than in process")
+    res.update(wall_s=wall, stages_s=stages, subprocess_wall_s=sub_wall, peak_gib=peak, launches=launches)
+    log(f"[cli] 4096^2 3 cycles x 2 ch x 3 z u16 CycleStack: in process {wall:.2f} s (stage timers on), "
+        f"peak device memory {peak:.2f} GiB, "
+        f"python -m {sub_wall:.2f} s (process start and build check included), same output file; "
+        f"stages {stages}; registered mse / unregistered mse <= {res['mse_ratio_max']:.4f}")
+    return res
+
+
+def cli_20480(dev, rng, counters: Counters, n=20480) -> dict:
+    """Config 5b's data shape (``bench.py::bench_20k_cli``): a 2-cycle x
+    2-channel x 1-z u16 CycleStack through the CLI, in a temporary
+    directory deleted afterwards."""
+    work = Path(tempfile.mkdtemp(prefix="ma_chip_smoke_20k_"))
+    try:
+        free = shutil.disk_usage(work).free
+        require(free > 10 * 2**30, f"{free / 2**30:.1f} GiB free in {work}; the 20480^2 CLI needs 10")
+        t0 = time.perf_counter()
+        base = texture(rng, n, n, dev)
+        dx, dy = displacement(n, n, 3.0, 0.3, dev, wavelength=2000.0)
+        moved = remap_rows(base, dx, dy)
+        del dx, dy
+
+        def u16(x):
+            return torch.clamp(x * 60000 + 1000, 0, 65535).round().to(torch.uint16).cpu().numpy()
+
+        dapi = [u16(base), u16(moved)]
+        del base, moved
+        planes = [[[dapi[c]], [dapi[c] // 3]] for c in range(2)]
+        stack = work / "stack.ome.tif"
+        write_cycle_stack(stack, planes)
+        write_config(work / "cfg.yaml", stack, work / "out")
+        log(f"[cli] {n}^2 2 cycles x 2 ch x 1 z u16 CycleStack made and written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        counters.reset()
+        wall, stages = run_cli_in_process(work / "cfg.yaml", dev)
+        launches = counters.read("cli_20480", ("K1", "K2", "K3", "K4"))
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        pinned = torch.cuda.host_memory_stats().get("allocated_bytes.peak", 0)
+        margin = max(64, n // 40)  # 512 px at 20480^2, as bench.py's config 5b
+        res = check_cli_output(work / "out" / "optflow_reg_result_stack.tif", planes, margin, "cli 20480", dev)
+        res.update(wall_s=wall, stages_s=stages, peak_gib=peak, pinned_host_bytes=pinned,
+                   launches=launches)
+        log(f"[cli] {n}^2 CLI in process {wall:.2f} s (stage timers on), peak device memory {peak:.2f} GiB, "
+            f"pinned host bytes {pinned}; stages {stages}; registered mse / unregistered mse <= "
+            f"{res['mse_ratio_max']:.4f}")
+        return res
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def main():
@@ -464,6 +774,7 @@ def main():
     smi = nvidia_smi()
     report = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
               "torch": torch.__version__, "cuda": torch.version.cuda}
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
     lib_path, ptxas = cuda_lib.build(verbose=True)
@@ -476,20 +787,35 @@ def main():
             log(f"[build] {line.strip()}")
 
     kernels = check_kernels(dev, rng)
+    kernels["K5"] = check_k5(dev, rng)
     report["parity"] = parity_run(dev, rng)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    report["main"] = main_path(dev, rng, out_dir)
+    counters = Counters()
+    report["main"], stack_planes = main_path(dev, rng, out_dir, counters)
+    report["zstack"] = zstack_apply(dev, rng, counters)
+    work = Path(tempfile.mkdtemp(prefix="ma_chip_smoke_4k_"))
+    try:
+        report["cli_4096"] = cli_4096(dev, stack_planes, counters, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del stack_planes
+    report["cli_20480"] = cli_20480(dev, rng, counters)
 
     report["kernels"] = kernels
+    report["total_s"] = time.perf_counter() - t_start
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(report, indent=1, default=str))
+    log(f"[done] all phases in {report['total_s']:.1f} s")
 
     log(smi)
     sources = {"K1": ("sample_displaced", "sample.cu", "microaligner_tpu/ops/pallas_sample.py:53"),
                "K2": ("poly_pair_m", "poly.cu", "microaligner_tpu/ops/pallas_poly.py:172"),
                "K3": ("smooth5_solve", "agg.cu", "microaligner_tpu/ops/pallas_agg.py:160"),
-               "K4": ("update_matrices", "matrices.cu", "microaligner_tpu/ops/pallas_matrices.py:63")}
-    launches = report["main"]["launches"]
+               "K4": ("update_matrices", "matrices.cu", "microaligner_tpu/ops/pallas_matrices.py:63"),
+               "K5": ("sample_displaced_multi", "sample.cu", "microaligner_tpu/ops/pallas_sample.py:183")}
+    # each path's launches, counted from 0 just before it and read just after
+    paths = (report["main"], report["zstack"], report["cli_4096"], report["cli_20480"])
+    launches = {k: sum(path["launches"][k] for path in paths) for k in sources}
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"microaligner_tpu_torch/csrc/{src}",
          "replaces": replaces, "launches": launches[k],

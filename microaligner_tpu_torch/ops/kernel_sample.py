@@ -1,4 +1,5 @@
-"""K1: bilinear displacement sampling, ``out(p) = img(p + (fx, fy)(p))``.
+"""K1: bilinear displacement sampling, ``out(p) = img(p + (fx, fy)(p))``,
+and K5, the same for N planes that share one displacement field.
 
 Replaces ``microaligner_tpu/ops/pallas_sample.py::pallas_sample_displaced``
 (Pallas body ``_kernel_batched``), which every per-level warp, the Warper,
@@ -13,6 +14,12 @@ On the H100 the kernel (``csrc/sample.cu``) is bound by bytes: it reads fx,
 fy and four taps and writes one f32 per pixel.  One thread per pixel gathers
 its taps directly, so it is exact for any displacement and needs none of the
 TPU kernel's band of shifted views or its exact-gather fallback.
+
+K5 (:func:`sample_displaced_multi`, ``csrc/sample.cu``) replaces
+``microaligner_tpu/ops/pallas_sample.py::pallas_sample_displaced_multi``, the
+z-stack apply: every plane of a cycle pulled by the cycle's one flow.  Its
+thread reads the flow and computes the taps' offsets and weights once, then
+gathers from every plane; each plane equals a K1 launch on it bit for bit.
 """
 
 from __future__ import annotations
@@ -21,7 +28,13 @@ import torch
 
 from microaligner_tpu_torch.ops import cuda_lib
 
-__all__ = ["sample_displaced", "sample_displaced_plain", "bilinear_taps"]
+__all__ = [
+    "sample_displaced",
+    "sample_displaced_plain",
+    "sample_displaced_multi",
+    "sample_displaced_multi_plain",
+    "bilinear_taps",
+]
 
 _IDX_LIMIT = 2**30  # floor(displacement) is clamped to this before indexing
 
@@ -111,3 +124,52 @@ def sample_displaced(img: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor) -> t
 
 
 sample_displaced.launches = 0
+
+
+def sample_displaced_multi_plain(imgs: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K5: (N, H, W) f32 planes, (H, W) f32
+    displacements shared by every plane."""
+    sample_displaced_multi_plain.calls += 1
+    n, h, w = imgs.shape
+    x0, y0, tx, ty = (t.expand(n, h, w) for t in split_displacement(fx, fy))
+    return bilinear_taps(imgs.reshape(n, h * w), x0, y0, tx, ty, h, w)
+
+
+sample_displaced_multi_plain.calls = 0
+
+
+def _check_multi(imgs, fx, fy):
+    if imgs.dim() != 3:
+        raise ValueError(f"sample_displaced_multi takes (N, H, W) planes, got {tuple(imgs.shape)}")
+    for name, t in (("imgs", imgs), ("fx", fx), ("fy", fy)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"sample_displaced_multi: {name} must be float32, got {t.dtype}")
+        if name != "imgs" and t.shape != imgs.shape[1:]:
+            raise ValueError(
+                f"sample_displaced_multi: {name} shape {tuple(t.shape)} != {tuple(imgs.shape[1:])}"
+            )
+        if t.device != imgs.device:
+            raise ValueError(f"sample_displaced_multi: {name} on {t.device}, imgs on {imgs.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"sample_displaced_multi: {name} must be contiguous")
+
+
+def sample_displaced_multi(imgs: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor) -> torch.Tensor:
+    """``out[n](p) = bilinear imgs[n](p + (fx, fy)(p))``, zero outside, for
+    (N, H, W) float32 planes and one (H, W) float32 displacement field.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches K5 or raises.
+    """
+    _check_multi(imgs, fx, fy)
+    if imgs.device.type == "cpu":
+        return sample_displaced_multi_plain(imgs, fx, fy)
+    cuda_lib.require_cuda(imgs, fx, fy)
+    n, h, w = imgs.shape
+    cuda_lib.check_grid("sample_displaced_multi", 1, -(-h // 8))  # 32 x 8 threads a block
+    out = torch.empty_like(imgs)
+    cuda_lib.call("ma_sample_displaced_multi", imgs.device, imgs, fx, fy, out, n, h, w)
+    sample_displaced_multi.launches += 1
+    return out
+
+
+sample_displaced_multi.launches = 0

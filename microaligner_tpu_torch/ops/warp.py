@@ -5,7 +5,8 @@ INTER_LINEAR and BORDER_CONSTANT(0)): taps that fall outside the source read
 zero, so a sample straddling the border blends with zeros.
 
 Every displacement sample goes through K1 (:func:`sample_displaced`), an
-exact four-tap gather for any displacement.  The JAX package's banded
+exact four-tap gather for any displacement; N planes that share one flow go
+through K5 (:func:`sample_displaced_multi`).  The JAX package's banded
 gather-free sampler and the ``lax.cond`` that guarded it against large
 displacements existed only because gathers are slow on a TPU; they have no
 counterpart here.
@@ -19,7 +20,11 @@ from __future__ import annotations
 import torch
 
 from microaligner_tpu_torch.ops.filters import round_to_dtype
-from microaligner_tpu_torch.ops.kernel_sample import bilinear_taps, sample_displaced
+from microaligner_tpu_torch.ops.kernel_sample import (
+    bilinear_taps,
+    sample_displaced,
+    sample_displaced_multi,
+)
 
 __all__ = [
     "bilinear_remap",
@@ -27,6 +32,8 @@ __all__ = [
     "warp_with_flow",
     "warp_with_flow_batched",
     "warp_with_flow_parts_batched",
+    "warp_planes_with_flow",
+    "warp_planes_with_flow_parts",
     "compose_flows",
     "compose_flows_batched",
 ]
@@ -68,6 +75,24 @@ def warp_with_flow_parts_batched(imgs: torch.Tensor, fx: torch.Tensor, fy: torch
     """The Warper's pull, ``out(p) = imgs(p - flow(p))``, with the flow as
     separate (N, H, W) channels; f32 output."""
     return sample_displaced(imgs.to(torch.float32).contiguous(), -fx, -fy)
+
+
+def warp_planes_with_flow(imgs: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Warp N planes by ONE shared flow: ``out[n](p) = imgs[n](p - flow(p))``.
+
+    The z-stack apply: every channel and z-plane of a cycle is pulled by the
+    cycle's flow.  ``imgs`` (N, H, W), ``flow`` (H, W, 2); (N, H, W) f32
+    output.  One K5 launch, exact for any displacement (the JAX package's
+    band check and ``lax.cond`` have no counterpart, as for K1).
+    """
+    return warp_planes_with_flow_parts(imgs, flow[..., 0], flow[..., 1])
+
+
+def warp_planes_with_flow_parts(imgs: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor) -> torch.Tensor:
+    """:func:`warp_planes_with_flow` with the flow as separate (H, W)
+    channels; f32 output."""
+    return sample_displaced_multi(imgs.to(torch.float32).contiguous(),
+                                  (-fx).contiguous(), (-fy).contiguous())
 
 
 def warp_with_flow_batched(imgs: torch.Tensor, flows: torch.Tensor) -> torch.Tensor:

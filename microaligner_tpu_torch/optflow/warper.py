@@ -3,7 +3,8 @@
 PyTorch counterpart of ``microaligner_tpu/optflow/warper.py`` on its default
 (row-band) path.  A pixel pulls only from within its band's halo-expanded
 slab, so a displacement beyond ``overlap`` reads zeros, as in the
-reference's per-tile ``cv.remap``.  All sampling goes through K1.
+reference's per-tile ``cv.remap``.  All sampling goes through K1, except
+:func:`warp_planes_tiled`, which pulls N planes by one flow through K5.
 """
 
 from __future__ import annotations
@@ -15,12 +16,24 @@ import torch
 
 from microaligner_tpu_torch.ops.filters import round_to_dtype
 from microaligner_tpu_torch.ops.pad import zero_pad
-from microaligner_tpu_torch.ops.warp import compose_flows_batched, warp_with_flow_parts_batched
+from microaligner_tpu_torch.ops.warp import (
+    compose_flows_batched,
+    warp_planes_with_flow_parts,
+    warp_with_flow_parts_batched,
+)
 from microaligner_tpu_torch.optflow.flow_calc import band_rows_for, band_slab
 from microaligner_tpu_torch.parallel import tile_map
 from microaligner_tpu_torch.tiles import TileGrid, pad_canvas, stitch_interiors, tile_origins
 
-__all__ = ["Warper", "warp_tiled", "warp_tiled_dtype", "compose_flows_tiled"]
+__all__ = [
+    "Warper",
+    "warp_tiled",
+    "warp_tiled_dtype",
+    "warp_planes_tiled",
+    "compose_flows_tiled",
+    "TORCH_DTYPES",
+    "round_to_numpy_dtype",
+]
 
 _COMPOSE_BATCH = 32  # halo windows composed per chunk (bounds the live working set)
 
@@ -60,6 +73,31 @@ def warp_tiled_dtype(image: torch.Tensor, flow: torch.Tensor, grid: TileGrid,
     return _warp_banded(image, flow, grid, dtype, band_rows_for(grid, band_rows))
 
 
+def warp_planes_tiled(imgs: torch.Tensor, flow: torch.Tensor, grid: TileGrid,
+                      dtype: torch.dtype, band_rows: Optional[int] = None) -> torch.Tensor:
+    """Warp N (N, H, W) planes by ONE shared (H, W, 2) flow, band by band,
+    rounded half to even and clipped to ``dtype`` inside each band.
+
+    The multi-channel/z apply shape (reference __main__.py:288-302), with the
+    per-band halo semantics of :func:`warp_tiled_dtype` for every plane: each
+    band's slab of the zero canvas (padded to a whole number of bands) is
+    pulled by the band's flow, which is zero on the halo.  One K5 launch a
+    band serves all N planes.
+    """
+    o = grid.overlap
+    h, w = grid.height, grid.width
+    rows = band_rows_for(grid, band_rows)
+    out = torch.empty((imgs.shape[0], h, w), dtype=dtype, device=imgs.device)
+    for row0 in range(0, h, rows):
+        n_in = min(rows, h - row0)
+        src = band_slab(imgs, row0, rows, o)
+        fx = zero_pad(flow[row0 : row0 + n_in, :, 0], o, rows - n_in + o, o, o)
+        fy = zero_pad(flow[row0 : row0 + n_in, :, 1], o, rows - n_in + o, o, o)
+        warped = warp_planes_with_flow_parts(src, fx, fy)
+        out[:, row0 : row0 + n_in] = round_to_dtype(warped[:, o : o + n_in, o : o + w], dtype)
+    return out
+
+
 def compose_flows_tiled(flow1: torch.Tensor, flow2: torch.Tensor, grid: TileGrid) -> torch.Tensor:
     """Tile-wise flow composition: per halo tile,
     ``merged(p) = f1(p) + f2(p - f1(p))`` with f2 zero outside the tile's
@@ -85,7 +123,9 @@ def compose_flows_tiled(flow1: torch.Tensor, flow2: torch.Tensor, grid: TileGrid
     return stitch_interiors(out, grid)
 
 
-_TORCH_DTYPES = {
+# numpy dtypes the port warps in their own torch dtype; others (uint32,
+# float64, ...) are warped in float32 and rounded back on the host
+TORCH_DTYPES = {
     np.dtype(np.uint8): torch.uint8,
     np.dtype(np.int8): torch.int8,
     np.dtype(np.uint16): torch.uint16,
@@ -101,9 +141,19 @@ def torch_dtype_of(img) -> torch.dtype:
     if isinstance(img, torch.Tensor):
         return img.dtype
     try:
-        return _TORCH_DTYPES[np.dtype(img.dtype)]
+        return TORCH_DTYPES[np.dtype(img.dtype)]
     except KeyError:
         raise TypeError(f"unsupported image dtype {img.dtype}") from None
+
+
+def round_to_numpy_dtype(arr: np.ndarray, dtype) -> np.ndarray:
+    """Round half to even and clip a float array to an integer numpy
+    ``dtype`` (``cv.remap`` on integer images); float dtypes are a cast."""
+    dtype = np.dtype(dtype)
+    if np.issubdtype(dtype, np.integer):
+        info = np.iinfo(dtype)
+        arr = np.clip(np.round(arr), info.min, info.max)
+    return arr.astype(dtype)
 
 
 def _missing(x) -> bool:
@@ -136,14 +186,9 @@ class Warper:
         image = self.image
         if _missing(image):
             raise ValueError("No image provided")
-        if isinstance(image, np.ndarray) and np.dtype(image.dtype) not in _TORCH_DTYPES:
-            orig = np.dtype(image.dtype)
+        if isinstance(image, np.ndarray) and np.dtype(image.dtype) not in TORCH_DTYPES:
             self.image = image.astype(np.float32)
-            out = self.warp_device().cpu().numpy()
-            if np.issubdtype(orig, np.integer):
-                info = np.iinfo(orig)
-                out = np.clip(np.round(out), info.min, info.max)
-            return out.astype(orig)
+            return round_to_numpy_dtype(self.warp_device().cpu().numpy(), image.dtype)
         return self.warp_device().cpu().numpy()
 
     def warp_device(self) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""K1-K4 on the card against their plain PyTorch versions on the same card.
+"""K1-K5 on the card against their plain PyTorch versions on the same card,
+and the pinned, streamed apply of the CLI on the card.
 
 These tests need an NVIDIA GPU and nvcc: the kernels are CUDA C++ with no
 CPU build, so without a card every test here skips.  The file imports only
@@ -9,7 +10,8 @@ torch and numpy, so it also runs where JAX is not installed:
 Each kernel rounds at the same places, in the same order, as its plain
 version (no FMA contraction), so the bars below are upper bounds on what
 is expected to be bitwise equal: K1 atol 1e-5 on unit-range data, K2/K4
-1e-5 x max|plain| + 1e-6, K3 1e-4 px.
+1e-5 x max|plain| + 1e-6, K3 1e-4 px.  K5 is held to its plain version and
+to one K1 launch per plane with no tolerance: it rounds as K1 does.
 """
 
 import numpy as np
@@ -19,6 +21,9 @@ import torch
 from microaligner_tpu_torch.ops import kernel_agg, kernel_matrices, kernel_poly, kernel_sample
 from microaligner_tpu_torch.ops.filters import gaussian_blur
 from microaligner_tpu_torch.optflow import farneback as tfb
+from microaligner_tpu_torch.pipeline.apply import stream_apply
+from microaligner_tpu_torch.pipeline.runner import _apply_flow_plane, _apply_flow_planes
+from microaligner_tpu_torch.tiles import TileGrid
 
 torch.set_num_threads(1)
 
@@ -129,3 +134,55 @@ def test_farneback_on_card_matches_cpu(gen, dev):
     want = tfb.farneback(mov[0].cpu(), ref[0].cpu(), win_size=51, num_iter=3)
     err = (got.cpu() - want).abs()
     assert float(err.mean()) < 1e-4 and float(err.max()) < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,spread", [(3, 300, 1001, 40.0), (2, 9, 45, 41.0), (1, 37, 70, 0.0)])
+def test_k5(gen, dev, n, h, w, spread):
+    imgs = torch.from_numpy(gen.random((n, h, w), dtype=np.float32)).to(dev)
+    fx = torch.from_numpy(((gen.random((h, w)) - 0.5) * spread).astype(np.float32)).to(dev)
+    fy = torch.from_numpy(((gen.random((h, w)) - 0.5) * spread).astype(np.float32)).to(dev)
+    launches = kernel_sample.sample_displaced_multi.launches
+    got = kernel_sample.sample_displaced_multi(imgs, fx, fy)
+    torch.cuda.synchronize()
+    assert kernel_sample.sample_displaced_multi.launches == launches + 1
+    assert torch.equal(got, kernel_sample.sample_displaced_multi_plain(imgs, fx, fy))
+    per_plane = kernel_sample.sample_displaced(imgs, fx.expand(n, h, w).contiguous(),
+                                               fy.expand(n, h, w).contiguous())
+    assert torch.equal(got, per_plane)
+
+
+@pytest.mark.cuda
+def test_apply_flow_planes_multi_equals_per_plane_on_card(gen, dev):
+    planes = torch.from_numpy(gen.integers(0, 65535, (3, 260, 300)).astype(np.uint16)).to(dev)
+    flow = torch.from_numpy(((gen.random((260, 300, 2)) - 0.5) * 8).astype(np.float32)).to(dev)
+    grid = TileGrid.for_image((260, 300), 120, 20)
+    launches = kernel_sample.sample_displaced_multi.launches
+    multi = _apply_flow_planes(planes, flow, grid, torch.uint16, band_rows=64)
+    assert kernel_sample.sample_displaced_multi.launches == launches + 5  # one a band
+    single = torch.stack([_apply_flow_plane(p, flow, grid, torch.uint16, band_rows=64) for p in planes])
+    assert multi.dtype == torch.uint16 and torch.equal(multi, single)
+
+
+@pytest.mark.cuda
+def test_stream_apply_pinned_on_card(gen, dev):
+    """The reader's pinned ring and side stream, and the writer's pinned
+    copy back, keep every plane and its order (more planes than buffers)."""
+    import threading
+
+    planes = [(i, gen.integers(0, 65535, (64 + i, 70)).astype(np.uint16)) for i in range(7)]
+    got, errors = {}, []
+
+    def run():
+        try:
+            stream_apply(iter(planes), lambda t: (t.to(torch.float32) * 0.5).round().to(torch.uint16),
+                         lambda k, v: got.__setitem__(k, v.copy()), device=dev)
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive() and not errors, errors
+    for k, p in planes:
+        np.testing.assert_array_equal(got[k], np.round(p.astype(np.float32) * 0.5).astype(np.uint16))

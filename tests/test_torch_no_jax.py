@@ -27,5 +27,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = (out.stdout.splitlines() + [""])[:2]
-    assert int(count) >= 20, out.stdout  # every module of the package was imported
+    # every module of the package was imported: 26 with the registration
+    # path, 36 with the CLI's host layer (io, _native, pipeline, __main__)
+    assert int(count) >= 36, out.stdout
     assert bad == "", f"port modules pulled in: {bad}"
