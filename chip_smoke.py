@@ -6,14 +6,25 @@ NVIDIA GPU.
 
 Run it from the repository root; it needs one card and takes no arguments.  Phases, each printing its own lines:
 
-1. build: compile ``microaligner_tpu_torch/csrc/*.cu`` with nvcc for sm_90a;
+1. build: compile ``microaligner_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
+   (one nvcc process a source, all at once);
 2. kernels: K1-K4 against their plain PyTorch versions on the card, at the
    main path's band shapes (4296 x 4296, 1256 x 20680) and edge cases, with
    CUDA-event times of kernel and plain version; K5 (N planes, one flow)
    against its plain version and against N K1 launches, bit for bit, at 8
    planes of a 4096^2 band slab, 2 of a 20480^2 one and the edge shapes;
+   K6 (one image's expansion) bit for bit against its plain version and
+   K2's expansions at those slabs and at H or W of 1-3, timed against
+   ``F.conv2d`` with the five folded filters, K2, and 2 x K6 plus the
+   zero-flow combine.  Each kernel's bound (bytes over 3.35 TB/s or
+   float32 operations over 67 TFLOP/s, whichever is larger) and, where one
+   PyTorch call computes the same function (``F.grid_sample`` for K1 and
+   K5, ``F.conv2d`` for K6), that call's time;
 3. parity: a 1024^2 pair through ``OptFlowRegistrator.register_device`` on
    the card against the same pair through the plain versions on the CPU;
+   then the unpaired Farneback route (``MICROALIGNER_TPU_PALLAS_POLY=1``)
+   on that pair and on one 4096^2 register: the flow bit for bit equal to
+   the default route's, with K6 launched and K2 not;
 4. main path: the CLI's cycle loop (z-max projection, ``register_device``,
    ``warp_device``, per-plane apply) over a synthetic 3-cycle x 2-channel x
    3-z u16 4096^2 stack, then a 2-cycle 20480^2 u8 register and a one-plane
@@ -29,7 +40,22 @@ Run it from the repository root; it needs one card and takes no arguments.  Phas
    u16 CycleStack through the CLI in process.  Each output is checked: its
    TCZYX shape and OME sizes, the reference cycle bit for bit, and the
    registered planes' interior MSE to cycle 1 below a quarter of the
-   unregistered MSE.
+   unregistered MSE;
+7. FeatureReg: ``FeatureRegistrator.register`` on config 1's pair of the
+   JAX package's bench (4096^2, ``t_true`` of ``bench.py::bench_feature``)
+   on the card and on the CPU (the corners within 1e-3 px of each other
+   and within 0.5 px of the truth), then on a 20480^2 pair;
+8. the chained CLI (``config_with_all_info.yaml``'s parameters: FeatureReg,
+   then OptFlowReg) at 4096^2 (3 cycles x 2 channels x 3 z, one OME-TIFF a
+   cycle) and 20480^2 (2 x 2 x 1, one CycleStack).  Cycle 2 is the
+   reference's texture moved by an affine (0.3 degrees, (37.4, -21.7) px)
+   and a smooth displacement of 1 px; the synthetic planes are warped with
+   ``scipy.ndimage.affine_transform`` (order 1), an independent warp.
+   Checked: TCZYX shapes and OME sizes of both outputs, the CSV rows, the
+   recovered affine within 0.5 px at the corners, the reference cycle bit
+   for bit, the registered MSE below a quarter of the unregistered;
+9. the automatic FeatureReg pass: an OptFlowReg-only config over one
+   4096 x 4096 and one 4000 x 4100 image.
 
 Every path of phases 4-6 runs with the kernels' launch counters set to 0
 just before it and read just after: each kernel of the path must have
@@ -53,14 +79,19 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 TOL = {"K1": "atol 1e-5", "K2": "1e-5*max|plain|+1e-6", "K3": "atol 1e-4 px", "K4": "1e-5*max|plain|+1e-6",
-       "K5": "0: bit-equal to its plain version and to one K1 launch a plane"}
+       "K5": "0: bit-equal to its plain version and to one K1 launch a plane",
+       "K6": "0: bit-equal to its plain version and to K2's expansions"}
+# NVIDIA H100 SXM: HBM3 rate and float32 rate outside the tensor cores
+H100_BYTES_PER_S, H100_F32_FLOPS = 3.35e12, 67e12
 
 
 class CheckFailed(RuntimeError):
@@ -108,10 +139,10 @@ class Counters:
 
         self.wrappers = {"K1": kernel_sample.sample_displaced, "K2": kernel_poly.poly_pair_m,
                          "K3": kernel_agg.smooth5_solve, "K4": kernel_matrices.update_matrices,
-                         "K5": kernel_sample.sample_displaced_multi}
+                         "K5": kernel_sample.sample_displaced_multi, "K6": kernel_poly.poly_exp5}
         self.plains = {"K1": kernel_sample.sample_displaced_plain, "K2": kernel_poly.poly_pair_m_plain,
                        "K3": kernel_agg.smooth5_solve_plain, "K4": kernel_matrices.update_matrices_plain,
-                       "K5": kernel_sample.sample_displaced_multi_plain}
+                       "K5": kernel_sample.sample_displaced_multi_plain, "K6": kernel_poly.poly_exp5_plain}
 
     def reset(self) -> None:
         for fn in (*self.wrappers.values(), *self.plains.values()):
@@ -165,6 +196,54 @@ def remap_rows(img, dx, dy, rows=2048):
 
 
 # -- phase 2 ---------------------------------------------------------------
+
+def kernel_bounds(h, w, planes=8, taps=99) -> dict:
+    """{kernel: (bound ms, "bytes" or "operations")} at an (h, w) slab: each
+    input read once and each output written once over HBM's rate, against
+    the float32 operations over the non-tensor-core rate.  Operations a
+    pixel are counted from each kernel's arithmetic (K3: two passes of 5
+    planes x ``taps`` multiply-adds, plus the solve)."""
+    px, pad = h * w, (h + 2) * (w + 2)
+    work = {  # (bytes, float32 operations)
+        "K1": (4 * px + 8 * px + 4 * px, 17 * px),
+        "K2": (2 * 4 * pad + 15 * 4 * px, 170 * px),
+        "K3": (5 * 4 * px + 2 * 4 * px, (2 * 5 * taps * 2 + 15) * px),
+        "K4": (10 * 4 * px + 8 * px + 5 * 4 * px, 90 * px),
+        "K5": (planes * 4 * px * 2 + 8 * px, (13 * planes + 4) * px),
+        "K6": (4 * pad + 5 * 4 * px, 66 * px),
+    }
+    out = {}
+    for k, (nbytes, flops) in work.items():
+        tb, tf = 1e3 * nbytes / H100_BYTES_PER_S, 1e3 * flops / H100_F32_FLOPS
+        out[k] = (max(tb, tf), "bytes" if tb >= tf else "operations")
+    return out
+
+
+def sample_grid(fx, fy):
+    """The (N, H, W, 2) ``grid_sample`` grid (align_corners=True) of p +
+    (fx, fy): the library call is timed only, its [-1, 1] coordinates lose
+    about 1e-3 px at 20k."""
+    n, h, w = fx.shape
+    xs = torch.arange(w, device=fx.device, dtype=torch.float32).view(1, 1, w)
+    ys = torch.arange(h, device=fx.device, dtype=torch.float32).view(1, h, 1)
+    return torch.stack([(xs + fx) * (2.0 / (w - 1)) - 1.0, (ys + fy) * (2.0 / (h - 1)) - 1.0], dim=-1)
+
+
+def grid_sample_call(img, grid):
+    return F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+
+
+def poly_filters(coeffs, dev) -> torch.Tensor:
+    """K6's expansion as five folded 3 x 3 correlation filters for
+    ``F.conv2d`` (the library yardstick)."""
+    g0, g1, xg1, xxg1, ig11, ig03, ig33, ig55 = coeffs
+    g = np.array([g0, g1, g0])
+    xg = np.array([-xg1, 0.0, xg1])
+    xxg = np.array([xxg1, 0.0, xxg1])
+    filt = [ig11 * np.outer(xg, g), ig11 * np.outer(g, xg),
+            ig33 * np.outer(xxg, g) + ig03 * np.outer(g, g),
+            ig33 * np.outer(g, xxg) + ig03 * np.outer(g, g), ig55 * np.outer(xg, xg)]
+    return torch.tensor(np.stack(filt)[:, None], dtype=torch.float32, device=dev)
 
 BAND_SHAPES = ((4296, 4296, "4096^2 band slab"), (1256, 20680, "20480^2 band slab"))
 EDGE_SHAPES = ((9, 45, "H<16"), (37, 1001, "ragged width"))
@@ -239,7 +318,10 @@ def check_kernels(dev, rng) -> dict:
                 k1 = cuda_ms(kern, reps)
                 k2 = cuda_ms(kern, reps)
                 p2 = cuda_ms(plain, preps)
-                times[k] = (min(k1, k2), min(p1, p2))
+                times[k] = (min(k1, k2), min(p1, p2), None)
+            grid = sample_grid(nfx, nfy)
+            times["K1"] = times["K1"][:2] + (cuda_ms(lambda: grid_sample_call(img[:, None], grid), reps),)
+            del grid
         for k in ("K1", "K2", "K3", "K4"):
             t = f" kernel {times[k][0]:.4f} ms plain {times[k][1]:.4f} ms" if k in times else ""
             log(f"[kernels] {k} {label} {h}x{w}: max_abs_err {line[k]:.3e} ({TOL[k]}){t}")
@@ -248,9 +330,12 @@ def check_kernels(dev, rng) -> dict:
     t4k, t20k = (case(h, w, label, timed=True) for h, w, label in BAND_SHAPES)
     for h, w, label in EDGE_SHAPES:
         case(h, w, label, timed=False)
+    bounds = kernel_bounds(*BAND_SHAPES[0][:2])
     for k in results:
-        results[k]["ms"], results[k]["plain_ms"] = t4k[k]
-        results[k]["ms_20k_band"], results[k]["plain_ms_20k_band"] = t20k[k]
+        results[k]["ms"], results[k]["plain_ms"], results[k]["library_ms"] = t4k[k]
+        results[k]["ms_20k_band"], results[k]["plain_ms_20k_band"], results[k]["library_ms_20k_band"] = t20k[k]
+        results[k]["bound_ms"], results[k]["bound_by"] = bounds[k]
+        results[k]["bound_ms_20k_band"] = kernel_bounds(*BAND_SHAPES[1][:2])[k][0]
     # the wrappers refuse what the kernels do not take
     for bad in (lambda: kernel_sample.sample_displaced(torch.zeros((1, 4, 4), device=dev, dtype=torch.float64),
                                                        torch.zeros((1, 4, 4), device=dev),
@@ -304,11 +389,16 @@ def check_k5(dev, rng, planes=((8,) + BAND_SHAPES[0], (2,) + BAND_SHAPES[1])) ->
             # order plain, kernel, N x K1, kernel, N x K1, plain
             p1, k_1, n1 = cuda_ms(plain, 3), cuda_ms(kern, 20), cuda_ms(k1s, 20)
             k_2, n2, p2 = cuda_ms(kern, 20), cuda_ms(k1s, 20), cuda_ms(plain, 3)
+            grid = sample_grid(fx[None], fy[None])
+            lib = cuda_ms(lambda: grid_sample_call(imgs[None], grid), 20)
+            del grid
             key = "" if label.startswith("4096") else "_20k_band"
-            res["ms" + key], res["k1_x%d_ms" % n + key], res["plain_ms" + key] = (
-                min(k_1, k_2), min(n1, n2), min(p1, p2))
+            res["ms" + key], res["k1_x%d_ms" % n + key], res["plain_ms" + key], res["library_ms" + key] = (
+                min(k_1, k_2), min(n1, n2), min(p1, p2), lib)
+            res["bound_ms" + key], res["bound_by" + key] = kernel_bounds(h, w, planes=n)["K5"]
             t = (f" kernel {min(k_1, k_2):.4f} ms, {n} x K1 {min(n1, n2):.4f} ms, "
-                 f"plain {min(p1, p2):.4f} ms")
+                 f"plain {min(p1, p2):.4f} ms, grid_sample {lib:.4f} ms, "
+                 f"bound {res['bound_ms' + key]:.4f} ms")
         log(f"[kernels] K5 {label} {n}x{h}x{w}: max_abs_err {err:.3e} ({TOL['K5']}){t}")
         del imgs, flow, fx, fy, got, want, per_plane
     for bad in (lambda: ks.sample_displaced_multi(torch.zeros((2, 4, 4), device=dev),
@@ -323,6 +413,71 @@ def check_k5(dev, rng, planes=((8,) + BAND_SHAPES[0], (2,) + BAND_SHAPES[1])) ->
             pass
         else:
             raise CheckFailed("K5's wrapper accepted an input its kernel does not take")
+    return res
+
+
+def check_k6(dev, rng) -> dict:
+    """K6 bit for bit against its plain version and K2's expansions, at the
+    band slabs (timed) and at H or W of 1-3; times of K6, ``F.conv2d`` with
+    the folded filters (same function, allclose), K2, and 2 x K6 plus the
+    zero-flow combine (the unpaired route's stage, against K2)."""
+    from microaligner_tpu_torch.ops import kernel_poly as kp
+    from microaligner_tpu_torch.ops.kernel_matrices import zero_flow_matrices
+    from microaligner_tpu_torch.optflow import farneback as fb
+
+    coeffs = fb._poly_coeff_tuple(1, 1.7)
+    weight = poly_filters(coeffs, dev)
+    res = {"max_abs_err": 0.0}
+    cases = [(1, h, w, label, True) for h, w, label in BAND_SHAPES]
+    cases += [(2, 1, 45, "H=1", False), (1, 3, 2, "H=3 W=2", False), (3, 2, 3, "H=2 W=3", False),
+              (1, 40, 1, "W=1", False)]
+    for n, h, w, label, timed in cases:
+        base = texture(rng, h + 8, w + 8, dev) * 255 if min(h, w) > 8 else \
+            torch.from_numpy(rng.random((n, h + 8, w + 8), dtype=np.float32) * 255).to(dev)
+        base = base.expand(n, h + 8, w + 8) if base.dim() == 2 else base
+        mov = base[:, 4 : 4 + h, 4 : 4 + w].contiguous()
+        ref = base[:, 3 : 3 + h, 5 : 5 + w].contiguous()
+        sp0 = fb._pad_replicate1(fb._pre_smooth(mov))
+        sp1 = fb._pad_replicate1(fb._pre_smooth(ref))
+        got = kp.poly_exp5(sp0, coeffs)
+        want = kp.poly_exp5_plain(sp0, coeffs)
+        pair = kp.poly_pair_m(sp0, sp1, coeffs)
+        err = float((got - want).abs().max())
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        require(torch.equal(got, want) and torch.equal(got, pair[0]),
+                f"K6 {label}: not bit-equal to its plain version and K2's R0 (err {err})")
+        line = f"[kernels] K6 {label} {n}x{h}x{w}: max_abs_err {err:.3e} ({TOL['K6']})"
+        if timed:
+            lib_out = F.conv2d(sp0[:, None], weight)
+            lib_err = float((lib_out - want).abs().max())
+            require(lib_err <= 1e-4 * float(want.abs().max()) + 1e-3, f"conv2d yardstick off by {lib_err}")
+            del lib_out, pair, got
+
+            def two_k6():
+                return zero_flow_matrices(kp.poly_exp5(sp0, coeffs), kp.poly_exp5(sp1, coeffs))
+
+            # order plain, kernel, conv2d, K2, 2 x K6 + combine, then back
+            t = {"plain": [cuda_ms(lambda: kp.poly_exp5_plain(sp0, coeffs), 3)],
+                 "kernel": [cuda_ms(lambda: kp.poly_exp5(sp0, coeffs), 20)],
+                 "conv2d": [cuda_ms(lambda: F.conv2d(sp0[:, None], weight), 20)],
+                 "k2": [cuda_ms(lambda: kp.poly_pair_m(sp0, sp1, coeffs), 20)],
+                 "two_k6": [cuda_ms(two_k6, 20)]}
+            for name, fn in (("two_k6", two_k6), ("k2", lambda: kp.poly_pair_m(sp0, sp1, coeffs)),
+                             ("conv2d", lambda: F.conv2d(sp0[:, None], weight)),
+                             ("kernel", lambda: kp.poly_exp5(sp0, coeffs)),
+                             ("plain", lambda: kp.poly_exp5_plain(sp0, coeffs))):
+                t[name].append(cuda_ms(fn, 3 if name == "plain" else 20))
+            t = {k: min(v) for k, v in t.items()}
+            key = "" if label.startswith("4096") else "_20k_band"
+            res.update({"ms" + key: t["kernel"], "plain_ms" + key: t["plain"], "library_ms" + key: t["conv2d"],
+                        "k2_ms" + key: t["k2"], "two_k6_combine_ms" + key: t["two_k6"],
+                        "conv2d_max_abs_err" + key: lib_err})
+            res["bound_ms" + key], res["bound_by" + key] = kernel_bounds(h, w)["K6"]
+            line += (f" kernel {t['kernel']:.4f} ms, conv2d {t['conv2d']:.4f} ms, plain {t['plain']:.4f} ms, "
+                     f"K2 {t['k2']:.4f} ms, 2 x K6 + combine {t['two_k6']:.4f} ms, "
+                     f"bound {res['bound_ms' + key]:.4f} ms")
+        log(line)
+        del base, mov, ref, sp0, sp1, want
     return res
 
 
@@ -357,6 +512,55 @@ def parity_run(dev, rng, n=1024) -> dict:
     require(mean < 1e-4 and mx < 1e-2, f"flow diff mean {mean} max {mx}")
     return {"flow_diff_mean": mean, "flow_diff_max": mx, "decisions": decisions["cuda"],
             "card_s": secs["cuda"], "cpu_s": secs["cpu"]}
+
+
+def unpaired_route(dev, rng, counters: "Counters", stack_planes, n=1024) -> dict:
+    """``MICROALIGNER_TPU_PALLAS_POLY=1`` (the JAX package's switch): the
+    1024^2 parity pair and the 4096^2 stack's first register go through K6
+    (2 launches a Farneback call) instead of K2, and give the default
+    route's flow bit for bit."""
+    from microaligner_tpu_torch.ops.filters import minmax_normalize_u8
+    from microaligner_tpu_torch.optflow.farneback import PALLAS_POLY_ENV
+    from microaligner_tpu_torch.optflow.registrator import OptFlowRegistrator
+    from microaligner_tpu_torch.utils.pages import max_project_u8
+
+    base = texture(rng, n, n, dev)
+    dx, dy = displacement(n, n, 3.0, 0.4, dev, wavelength=400.0)
+    pairs = {"1024^2 parity pair": (minmax_normalize_u8(base), minmax_normalize_u8(remap_rows(base, dx, dy)),
+                                    dict(num_pyr_lvl=3, tile_size=500, band_rows=256)),
+             "4096^2 stack register": (max_project_u8(stack_planes[0][0], dev),
+                                       max_project_u8(stack_planes[1][0], dev), dict(num_pyr_lvl=3))}
+    res = {}
+    launches = {}
+    for label, (ref, mov, params) in pairs.items():
+        flows = {}
+        for route in ("default", "unpaired"):
+            reg = OptFlowRegistrator(device=dev)
+            reg.num_iterations, reg.overlap, reg.use_full_res_img = 3, 100, True
+            for k, v in params.items():
+                setattr(reg, k, v)
+            reg.ref_img, reg.mov_img = ref, mov
+            if route == "unpaired":
+                os.environ[PALLAS_POLY_ENV] = "1"
+                counters.reset()
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                flows[route] = reg.register_device()
+                torch.cuda.synchronize()
+                res[f"{label} {route} s"] = time.perf_counter() - t0
+            finally:
+                os.environ.pop(PALLAS_POLY_ENV, None)
+            if route == "unpaired":
+                got = counters.read(f"unpaired {label}", ("K1", "K3", "K4", "K6"))
+                require(got["K2"] == 0, f"unpaired {label}: K2 launched {got['K2']} times")
+                launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+        same = torch.equal(flows["default"], flows["unpaired"])
+        log(f"[unpaired] {label}: register default route {res[f'{label} default s']:.3f} s, unpaired route "
+            f"{res[f'{label} unpaired s']:.3f} s; flows bit-equal: {same}")
+        require(same, f"unpaired {label}: the flow differs from the default route's")
+    res["launches"] = launches
+    return res
 
 
 # -- phase 4 ---------------------------------------------------------------
@@ -622,19 +826,10 @@ def write_cycle_stack(path: Path, planes) -> None:
     mm.close()
 
 
-def write_config(path: Path, stack: Path, out_dir: Path) -> None:
-    """The parameters of ``config_examples/config_cycle_stack_optflow_only.yaml``."""
-    import yaml
-
-    cfg = yaml.safe_load((ROOT / "config_examples" / "config_cycle_stack_optflow_only.yaml").read_text())
-    cfg["Input"]["InputImagePaths"] = {"CycleStack": str(stack)}
-    cfg["Output"]["OutputDir"] = str(out_dir)
-    path.write_text(yaml.dump(cfg, sort_keys=False))
-
-
-def run_cli_in_process(cfg: Path, dev) -> tuple:
+def run_cli_in_process(cfg: Path, dev, output: list | None = None) -> tuple:
     """``__main__.main([cfg])`` on ``dev`` with the stage timers on; returns
-    (wall seconds, {stage: seconds})."""
+    (wall seconds, {stage: seconds}) and appends the CLI's printed lines to
+    ``output`` when given."""
     from microaligner_tpu_torch.__main__ import main as cli_main
 
     buf = io.StringIO()
@@ -648,61 +843,26 @@ def run_cli_in_process(cfg: Path, dev) -> tuple:
         wall = time.perf_counter() - t0
     finally:
         os.environ.pop("MICROALIGNER_TPU_PROFILE", None)
+    if output is not None:
+        output.append(buf.getvalue())
     stages = {}
     for name, secs in re.findall(r"^\[profile\] (.+): ([0-9.]+)s$", buf.getvalue(), re.M):
         stages[name] = round(stages.get(name, 0.0) + float(secs), 4)
     return wall, stages
 
 
-def check_cli_output(out: Path, planes, margin: int, label: str, dev) -> dict:
-    """The TCZYX stack the CLI wrote: shape and OME sizes, the reference
-    cycle bit for bit, and every registered plane's interior MSE to cycle 1
-    below a quarter of the unregistered MSE."""
-    from microaligner_tpu_torch.io import TiffFile
-    from microaligner_tpu_torch.io.ome import extract_pixels_info, str_to_xml
-
-    cycles, channels, nz = len(planes), len(planes[0]), len(planes[0][0])
-    h, w = planes[0][0][0].shape
-    res = {"mse_before": [], "mse_after": []}
-
-    def mse(a, b):
-        return interior_mse(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev), margin)
-
-    with TiffFile(out) as tf:
-        s = tf.series[0]
-        info = extract_pixels_info(str_to_xml(tf.ome_metadata))
-        want_shape = (cycles * channels, nz, h, w) if nz > 1 else (cycles * channels, h, w)
-        require(s.shape == want_shape and s.dtype == np.uint16, f"{label}: {s.shape} {s.dtype}")
-        require((int(info["SizeC"]), int(info["SizeZ"]), int(info["SizeT"])) == (cycles * channels, nz, 1),
-                f"{label}: OME sizes {info}")
-        for c in range(cycles):
-            for ch in range(channels):
-                for z in range(nz):
-                    page = tf.read_page((c * channels + ch) * nz + z)
-                    ref = planes[0][ch][z]
-                    if c == 0:
-                        require(np.array_equal(page, ref), f"{label}: reference plane {ch},{z} changed")
-                        continue
-                    before, after = mse(planes[c][ch][z], ref), mse(page, ref)
-                    res["mse_before"].append(before)
-                    res["mse_after"].append(after)
-                    require(after < 0.25 * before, f"{label}: cycle {c + 1} ch {ch} z {z} mse {before} -> {after}")
-    res["mse_ratio_max"] = max(a / b for a, b in zip(res["mse_after"], res["mse_before"]))
-    res["tczyx"] = (1, cycles * channels, nz, h, w)
-    return res
-
-
 def cli_4096(dev, planes, counters: Counters, work: Path) -> dict:
     stack, out1, out2 = work / "stack_4096.ome.tif", work / "out_4096", work / "out_4096_subprocess"
     write_cycle_stack(stack, planes)
-    write_config(work / "cfg_4096.yaml", stack, out1)
-    write_config(work / "cfg_4096_subprocess.yaml", stack, out2)
+    for cfg, out in (("cfg_4096.yaml", out1), ("cfg_4096_subprocess.yaml", out2)):
+        write_named_config(work / cfg, "config_cycle_stack_optflow_only.yaml", {"CycleStack": str(stack)}, out)
     torch.cuda.reset_peak_memory_stats(dev)
     counters.reset()
     wall, stages = run_cli_in_process(work / "cfg_4096.yaml", dev)
     launches = counters.read("cli_4096", ("K1", "K2", "K3", "K4"))
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    res = check_cli_output(out1 / "optflow_reg_result_stack.tif", planes, 200, "cli 4096", dev)
+    res = check_stage_output(out1 / "optflow_reg_result_stack.tif", planes, planes[0], 200, "cli 4096", dev,
+                             mse_bar=0.25)
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "microaligner_tpu_torch", str(work / "cfg_4096_subprocess.yaml")],
                           cwd=ROOT, capture_output=True, text=True, timeout=600)
@@ -740,7 +900,8 @@ def cli_20480(dev, rng, counters: Counters, n=20480) -> dict:
         planes = [[[dapi[c]], [dapi[c] // 3]] for c in range(2)]
         stack = work / "stack.ome.tif"
         write_cycle_stack(stack, planes)
-        write_config(work / "cfg.yaml", stack, work / "out")
+        write_named_config(work / "cfg.yaml", "config_cycle_stack_optflow_only.yaml", {"CycleStack": str(stack)},
+                           work / "out")
         log(f"[cli] {n}^2 2 cycles x 2 ch x 1 z u16 CycleStack made and written in "
             f"{time.perf_counter() - t0:.2f} s")
         torch.cuda.empty_cache()
@@ -751,12 +912,331 @@ def cli_20480(dev, rng, counters: Counters, n=20480) -> dict:
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         pinned = torch.cuda.host_memory_stats().get("allocated_bytes.peak", 0)
         margin = max(64, n // 40)  # 512 px at 20480^2, as bench.py's config 5b
-        res = check_cli_output(work / "out" / "optflow_reg_result_stack.tif", planes, margin, "cli 20480", dev)
+        res = check_stage_output(work / "out" / "optflow_reg_result_stack.tif", planes, planes[0], margin,
+                                 "cli 20480", dev, mse_bar=0.25)
         res.update(wall_s=wall, stages_s=stages, peak_gib=peak, pinned_host_bytes=pinned,
                    launches=launches)
         log(f"[cli] {n}^2 CLI in process {wall:.2f} s (stage timers on), peak device memory {peak:.2f} GiB, "
             f"pinned host bytes {pinned}; stages {stages}; registered mse / unregistered mse <= "
             f"{res['mse_ratio_max']:.4f}")
+        return res
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# -- phases 7-9 ------------------------------------------------------------
+
+def warp_affine_scipy(img: np.ndarray, fwd, out_shape=None) -> np.ndarray:
+    """``cv.warpAffine(img, fwd)``: out(q) = img(fwd^-1 q), bilinear, zero
+    outside, with ``scipy.ndimage.affine_transform`` (order 1), in row
+    chunks on threads.  An independent warp for the synthetic data."""
+    import scipy.ndimage as ndi
+
+    inv = np.linalg.inv(np.vstack([np.asarray(fwd, np.float64), [0.0, 0.0, 1.0]]))[:2]
+    mat = np.array([[inv[1, 1], inv[1, 0]], [inv[0, 1], inv[0, 0]]])  # (row, col) order
+    off = np.array([inv[1, 2], inv[0, 2]])
+    h, w = out_shape or img.shape
+    src = np.ascontiguousarray(img, dtype=np.float32)
+
+    def part(r0):
+        r1 = min(h, r0 + 1024)
+        return ndi.affine_transform(src, mat, offset=off + mat @ np.array([r0, 0.0]),
+                                    output_shape=(r1 - r0, w), order=1, mode="constant", cval=0.0)
+
+    with ThreadPoolExecutor(os.cpu_count() or 1) as ex:
+        return np.concatenate(list(ex.map(part, range(0, h, 1024))))
+
+
+def rotation_fwd(h, w, degrees, shift) -> np.ndarray:
+    """Forward 2x3 (x, y) matrix: rotation about the image centre by
+    ``degrees`` (counter-clockwise on screen, as cv.getRotationMatrix2D),
+    then ``shift``."""
+    a, b = math.cos(math.radians(degrees)), math.sin(math.radians(degrees))
+    cx, cy = w / 2.0, h / 2.0
+    return np.array([[a, b, (1 - a) * cx - b * cy + shift[0]],
+                     [-b, a, b * cx + (1 - a) * cy + shift[1]]])
+
+
+def corner_err(tmat, want, shape) -> float:
+    h, w = shape
+    pts = np.array([[0, 0, 1], [w - 1, 0, 1], [0, h - 1, 1], [w - 1, h - 1, 1]], float).T
+    return float(np.abs(np.asarray(tmat) @ pts - np.asarray(want) @ pts).max())
+
+
+def inverse2x3(fwd) -> np.ndarray:
+    return np.linalg.inv(np.vstack([np.asarray(fwd, np.float64), [0.0, 0.0, 1.0]]))[:2]
+
+
+def feature_pairs(dev, rng, counters: "Counters", sizes=(4096, 20480)) -> dict:
+    """Config 1 of the JAX package's bench (``bench.py::bench_feature``):
+    ``FeatureRegistrator`` (3 levels [8, 4, 2], 3 iterations, tile 1000,
+    DoG) on a 4096^2 u8 pair moved by ``t_true``, on the card and on the
+    CPU; then a 20480^2 pair on the card."""
+    from microaligner_tpu_torch.features import FeatureRegistrator
+    from microaligner_tpu_torch.ops.filters import minmax_normalize_u8
+
+    t_true = np.array([[1.0004, 0.0003, 6.4], [-0.0003, 1.0004, -9.1]])
+    truth = inverse2x3(t_true)  # register() maps mov coords to ref coords
+    res = {}
+    for n in sizes:
+        t0 = time.perf_counter()
+        ref = minmax_normalize_u8(texture(rng, n, n, dev)).cpu().numpy()
+        mov = np.clip(np.round(warp_affine_scipy(ref, t_true)), 0, 255).astype(np.uint8)
+        log(f"[feature] {n}^2 u8 pair made in {time.perf_counter() - t0:.2f} s")
+        runs = {}
+        for where in (("cuda", "cpu") if n == sizes[0] else ("cuda",)):
+            reg = FeatureRegistrator(device=dev if where == "cuda" else "cpu")
+            reg.num_pyr_lvl, reg.num_iterations, reg.tile_size, reg.use_dog = 3, 3, 1000, True
+            reg.ref_img, reg.mov_img = ref, mov
+            if where == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+                counters.reset()
+            with contextlib.redirect_stdout(io.StringIO()):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runs[where] = reg.register()
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            res[f"{n}_{where}_s"] = secs
+            if where == "cuda":
+                res[f"{n}_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+                res[f"launches_{n}"] = counters.read(f"feature_{n}", ("K1",))
+        err_truth = corner_err(runs["cuda"], truth, (n, n))
+        res[f"{n}_tmat"] = runs["cuda"].tolist()
+        res[f"{n}_truth_err_px"] = err_truth
+        line = (f"[feature] {n}^2 FeatureRegistrator on the card {res[f'{n}_cuda_s']:.2f} s, peak device memory "
+                f"{res[f'{n}_peak_gib']:.2f} GiB; corners vs truth {err_truth:.4f} px")
+        if "cpu" in runs:
+            res[f"{n}_card_vs_cpu_px"] = corner_err(runs["cuda"], runs["cpu"], (n, n))
+            line += f"; CPU run {res[f'{n}_cpu_s']:.2f} s, card vs CPU {res[f'{n}_card_vs_cpu_px']:.2e} px"
+        log(line)
+        require(err_truth < 0.5, f"feature {n}: {err_truth} px from the truth")
+        if "cpu" in runs:
+            require(res[f"{n}_card_vs_cpu_px"] < 1e-3, f"feature {n}: card vs CPU {res[f'{n}_card_vs_cpu_px']} px")
+        del ref, mov
+    res["launches"] = {k: sum(res[f"launches_{n}"][k] for n in sizes) for k in res[f"launches_{sizes[0]}"]}
+    return res
+
+
+def smooth_displacement(n, dev, amp=1.0, periods=2):
+    """An even cosine field of whole periods about the centre: no affine
+    part, so FeatureReg's fit is the affine alone and OptFlowReg removes
+    this."""
+    c = (torch.arange(n, device=dev, dtype=torch.float32) - n / 2.0) * (2 * math.pi * periods / n)
+    return (amp * torch.cos(c).view(n, 1).expand(n, n).contiguous(),
+            0.7 * amp * torch.cos(c).view(1, n).expand(n, n).contiguous())
+
+
+def moved_texture(tex: torch.Tensor, fwd, dev) -> torch.Tensor:
+    """``tex`` moved by the forward affine ``fwd`` (scipy), then pulled by
+    the smooth displacement (the plain gather), on ``dev``, in [0, 1]."""
+    n = tex.shape[0]
+    aff = torch.from_numpy(warp_affine_scipy(tex.cpu().numpy(), fwd)).to(dev)
+    dx, dy = smooth_displacement(n, dev)
+    return remap_rows(aff, dx, dy)
+
+
+def write_cycle_files(work: Path, planes) -> dict:
+    """One OME-TIFF a cycle ([channel][z] u16 planes), channels DAPI, Cy5."""
+    from microaligner_tpu_torch.io import MemmapWriter
+
+    paths = {}
+    for c, per_ch in enumerate(planes):
+        nch, nz = len(per_ch), len(per_ch[0])
+        h, w = per_ch[0][0].shape
+        path = work / f"cycle{c + 1}.ome.tif"
+        mm = MemmapWriter(path, (1, nch, nz, h, w), np.uint16,
+                          description=stack_ome(["DAPI", "Cy5", "FITC"][:nch], h, w, nz))
+        for ch in range(nch):
+            for z in range(nz):
+                mm[0, ch, z] = per_ch[ch][z]
+        mm.close()
+        paths[f"Cycle {c + 1}"] = str(path)
+    return paths
+
+
+def write_named_config(path: Path, example: str, inputs: dict, out_dir: Path) -> dict:
+    import yaml
+
+    cfg = yaml.safe_load((ROOT / "config_examples" / example).read_text())
+    cfg["Input"]["InputImagePaths"] = inputs
+    cfg["Output"]["OutputDir"] = str(out_dir)
+    path.write_text(yaml.dump(cfg, sort_keys=False))
+    return cfg
+
+
+def check_stage_output(path: Path, planes, ref_planes, margin: int, label: str, dev, mse_bar=None) -> dict:
+    """One stage's TCZYX stack: shape, dtype and OME sizes; the reference
+    cycle equal to ``ref_planes`` bit for bit; with ``mse_bar``, every other
+    plane's interior MSE to the reference below ``mse_bar`` times its
+    unregistered MSE.  ``planes[cycle][channel][z]`` are the inputs at the
+    output's size."""
+    from microaligner_tpu_torch.io import TiffFile
+    from microaligner_tpu_torch.io.ome import extract_pixels_info, str_to_xml
+
+    cycles, channels, nz = len(planes), len(planes[0]), len(planes[0][0])
+    h, w = planes[0][0][0].shape
+    res = {"ratios": []}
+    with TiffFile(path) as tf:
+        s = tf.series[0]
+        info = extract_pixels_info(str_to_xml(tf.ome_metadata))
+        want_shape = (cycles * channels, nz, h, w) if nz > 1 else (cycles * channels, h, w)
+        require(s.shape == want_shape and s.dtype == np.uint16, f"{label}: {s.shape} {s.dtype}")
+        require((int(info["SizeC"]), int(info["SizeZ"]), int(info["SizeT"]), int(info["SizeY"]),
+                 int(info["SizeX"])) == (cycles * channels, nz, 1, h, w), f"{label}: OME sizes {info}")
+        for c in range(cycles):
+            for ch in range(channels):
+                for z in range(nz):
+                    page = tf.read_page((c * channels + ch) * nz + z)
+                    if c == 0:
+                        require(np.array_equal(page, ref_planes[ch][z]), f"{label}: reference plane {ch},{z} changed")
+                        continue
+                    if mse_bar is None:
+                        continue
+                    sl = (slice(margin, -margin), slice(margin, -margin))
+                    ref = torch.from_numpy(ref_planes[ch][z][sl]).to(dev).float()
+                    before = float(((torch.from_numpy(planes[c][ch][z][sl]).to(dev).float() - ref) ** 2).mean())
+                    after = float(((torch.from_numpy(page[sl]).to(dev).float() - ref) ** 2).mean())
+                    res["ratios"].append(after / before)
+                    require(after < mse_bar * before, f"{label}: cycle {c + 1} ch {ch} z {z} mse {before} -> {after}")
+    res["mse_ratio_max"] = max(res["ratios"]) if res["ratios"] else None
+    res["tczyx"] = (1, cycles * channels, nz, h, w)
+    return res
+
+
+def check_csv(path: Path, truths: dict, shape, paddings: dict) -> dict:
+    """``feature_reg_parameters.csv``: one row a cycle with its padding and
+    the output size; each matrix within 0.5 px of ``truths[cycle]`` at the
+    corners."""
+    import csv
+
+    with open(path, newline="") as fh:
+        rows = list(csv.reader(fh))
+    require(rows[0] == ["name", "0", "1", "2", "3", "4", "5", "left", "right", "top", "bottom", "width",
+                        "height"], f"CSV header {rows[0]}")
+    errs = {}
+    for row in rows[1:]:
+        cyc = int(row[0].split()[1])
+        require(row[7:] == [str(v) for v in paddings[cyc]] + [str(shape[1]), str(shape[0])], f"CSV row {row}")
+        errs[cyc] = corner_err(np.array(row[1:7], float).reshape(2, 3), truths[cyc], shape)
+        require(errs[cyc] < 0.5, f"CSV cycle {cyc}: {errs[cyc]} px from the truth")
+    require(sorted(errs) == sorted(truths), f"CSV cycles {sorted(errs)}")
+    return errs
+
+
+def chained_cli(dev, rng, counters: "Counters", n: int, big: bool) -> dict:
+    """``config_with_all_info.yaml``'s two stages through the CLI in
+    process: 3 cycles x 2 channels x 3 z, one file a cycle, or (``big``)
+    2 x 2 x 1 in one CycleStack.  Cycle 2 (and 3) moved by an affine plus a
+    1 px smooth displacement."""
+    cycles, channels, zs = (2, 2, 1) if big else (3, 2, 3)
+    moves = {2: rotation_fwd(n, n, 0.3, (37.4, -21.7)), 3: rotation_fwd(n, n, -0.2, (-12.3, 8.8))}
+    work = Path(tempfile.mkdtemp(prefix=f"ma_chip_smoke_chained_{n}_"))
+    try:
+        free = shutil.disk_usage(work).free
+        need = (12 if big else 2) * 2**30
+        if free < need:
+            raise CheckFailed(f"{free / 2**30:.1f} GiB free in {work}; the {n}^2 chained CLI needs "
+                              f"{need / 2**30:.0f}")
+        t0 = time.perf_counter()
+        textures = [texture(rng, n, n, dev) for _ in range(1 if big else channels)]
+
+        def u16(x, z):
+            return torch.clamp(x * (0.8 + 0.1 * z) * 50000 + 2000, 0, 65535).round().to(torch.uint16).cpu().numpy()
+
+        planes = []
+        for c in range(cycles):
+            per_ch = []
+            for ch in range(channels):
+                tex = textures[min(ch, len(textures) - 1)]
+                moved = tex if c == 0 else moved_texture(tex, moves[c + 1], dev)
+                zplanes = [u16(moved, z) for z in range(zs)]
+                per_ch.append([p // 3 for p in zplanes] if big and ch == 1 else zplanes)
+                del moved
+            planes.append(per_ch)
+        del textures
+        if big:
+            stack = work / "stack.ome.tif"
+            write_cycle_stack(stack, planes)
+            inputs = {"CycleStack": str(stack)}
+        else:
+            inputs = write_cycle_files(work, planes)
+        cfg = write_named_config(work / "cfg.yaml", "config_with_all_info.yaml", inputs, work / "out")
+        log(f"[chained] {n}^2 {cycles} cycles x {channels} ch x {zs} z u16 made and written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        counters.reset()
+        wall, stages = run_cli_in_process(work / "cfg.yaml", dev)
+        launches = counters.read(f"chained_{n}", ("K1", "K2", "K3", "K4"))
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        pinned = torch.cuda.host_memory_stats().get("allocated_bytes.peak", 0)
+        prefix = cfg["Output"]["OutputPrefix"]
+        out = work / "out"
+        margin = min(max(200, n // 40), n // 8)
+        freg = check_stage_output(out / f"{prefix}feature_reg_result_stack.tif", planes, planes[0], margin,
+                                  f"chained {n} FeatureReg", dev)
+        ofreg = check_stage_output(out / f"{prefix}optflow_reg_result_stack.tif", planes, planes[0], margin,
+                                   f"chained {n} OptFlowReg", dev, mse_bar=0.25)
+        truths = {1: np.eye(2, 3), **{c: inverse2x3(moves[c]) for c in range(2, cycles + 1)}}
+        errs = check_csv(out / "feature_reg_parameters.csv", truths, (n, n),
+                         {c: (0, 0, 0, 0) for c in range(1, cycles + 1)})
+        res = dict(wall_s=wall, stages_s=stages, peak_gib=peak, pinned_host_bytes=pinned, launches=launches,
+                   affine_err_px=errs, mse_ratio_max=ofreg["mse_ratio_max"], tczyx=ofreg["tczyx"],
+                   feature_tczyx=freg["tczyx"])
+        log(f"[chained] {n}^2 CLI (FeatureReg + OptFlowReg) in process {wall:.2f} s (stage timers on), peak "
+            f"device memory {peak:.2f} GiB, pinned host bytes {pinned}; stages {stages}; affine vs truth "
+            f"{errs} px; registered mse / unregistered mse <= {ofreg['mse_ratio_max']:.4f}")
+        return res
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def auto_feature_pass(dev, rng, counters: "Counters", h=4096) -> dict:
+    """An OptFlowReg-only config (``config_cycle_stack_optflow_only.yaml``'s
+    parameters) over per-cycle images of h x h and (h - 96) x (h + 4)
+    (4096 x 4096 and 4000 x 4100): the CLI runs FeatureReg first and pads
+    both to h x (h + 4)."""
+    w = h + 4
+    work = Path(tempfile.mkdtemp(prefix="ma_chip_smoke_auto_"))
+    try:
+        tex = texture(rng, h, w, dev)
+        fwd = rotation_fwd(h, w, 0.1, (5.3, -3.1))
+        moved = torch.from_numpy(warp_affine_scipy(tex.cpu().numpy(), fwd)).to(dev)
+
+        def u16(x):
+            return torch.clamp(x * 50000 + 2000, 0, 65535).round().to(torch.uint16).cpu().numpy()
+
+        full = [u16(tex), u16(moved)]
+        cyc1 = [[full[0][:, 2 : h + 2].copy()], [full[0][:, 2 : h + 2] // 3]]
+        cyc2 = [[full[1][48 : h - 48].copy()], [full[1][48 : h - 48] // 3]]
+        inputs = write_cycle_files(work, [cyc1, cyc2])
+        write_named_config(work / "cfg.yaml", "config_cycle_stack_optflow_only.yaml", inputs, work / "out")
+        # the inputs as the CLI pads them: what the outputs are checked against
+        padded = [[[np.pad(p, ((0, 0), (2, 2)))] for p in (cyc1[0][0], cyc1[1][0])],
+                  [[np.pad(p, ((48, 48), (0, 0)))] for p in (cyc2[0][0], cyc2[1][0])]]
+        del tex, moved
+        torch.cuda.reset_peak_memory_stats(dev)
+        counters.reset()
+        printed = []
+        wall, stages = run_cli_in_process(work / "cfg.yaml", dev, printed)
+        launches = counters.read("auto", ("K1", "K2", "K3", "K4"))
+        require("Will try to perform FeatureReg first" in printed[0], "auto: no FeatureReg pass")
+        out = work / "out"
+        margin = min(200, h // 8)
+        freg = check_stage_output(out / "feature_reg_result_stack.tif", padded, padded[0], margin,
+                                  "auto FeatureReg", dev)
+        ofreg = check_stage_output(out / "optflow_reg_result_stack.tif", padded, padded[0], margin,
+                                   "auto OptFlowReg", dev, mse_bar=0.25)
+        errs = check_csv(out / "feature_reg_parameters.csv", {1: np.eye(2, 3), 2: inverse2x3(fwd)}, (h, w),
+                         {1: (2, 2, 0, 0), 2: (0, 0, 48, 48)})
+        res = dict(wall_s=wall, stages_s=stages, launches=launches, affine_err_px=errs,
+                   mse_ratio_max=ofreg["mse_ratio_max"], tczyx=ofreg["tczyx"], feature_tczyx=freg["tczyx"],
+                   peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+        log(f"[auto] OptFlowReg-only config over {h}x{h} and {h - 96}x{w} images: FeatureReg pass run, in process "
+            f"{wall:.2f} s; outputs {ofreg['tczyx']}; affine vs truth {errs} px; registered mse / unregistered "
+            f"mse <= {ofreg['mse_ratio_max']:.4f}")
         return res
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -788,11 +1268,13 @@ def main():
 
     kernels = check_kernels(dev, rng)
     kernels["K5"] = check_k5(dev, rng)
+    kernels["K6"] = check_k6(dev, rng)
     report["parity"] = parity_run(dev, rng)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     counters = Counters()
     report["main"], stack_planes = main_path(dev, rng, out_dir, counters)
+    report["unpaired"] = unpaired_route(dev, rng, counters, stack_planes)
     report["zstack"] = zstack_apply(dev, rng, counters)
     work = Path(tempfile.mkdtemp(prefix="ma_chip_smoke_4k_"))
     try:
@@ -801,6 +1283,10 @@ def main():
         shutil.rmtree(work, ignore_errors=True)
     del stack_planes
     report["cli_20480"] = cli_20480(dev, rng, counters)
+    report["feature"] = feature_pairs(dev, rng, counters)
+    report["chained_4096"] = chained_cli(dev, rng, counters, 4096, big=False)
+    report["chained_20480"] = chained_cli(dev, rng, counters, 20480, big=True)
+    report["auto"] = auto_feature_pass(dev, rng, counters)
 
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start
@@ -812,15 +1298,18 @@ def main():
                "K2": ("poly_pair_m", "poly.cu", "microaligner_tpu/ops/pallas_poly.py:172"),
                "K3": ("smooth5_solve", "agg.cu", "microaligner_tpu/ops/pallas_agg.py:160"),
                "K4": ("update_matrices", "matrices.cu", "microaligner_tpu/ops/pallas_matrices.py:63"),
-               "K5": ("sample_displaced_multi", "sample.cu", "microaligner_tpu/ops/pallas_sample.py:183")}
+               "K5": ("sample_displaced_multi", "sample.cu", "microaligner_tpu/ops/pallas_sample.py:183"),
+               "K6": ("poly_exp5", "poly.cu", "microaligner_tpu/ops/pallas_poly.py:83")}
     # each path's launches, counted from 0 just before it and read just after
-    paths = (report["main"], report["zstack"], report["cli_4096"], report["cli_20480"])
-    launches = {k: sum(path["launches"][k] for path in paths) for k in sources}
+    paths = ("main", "unpaired", "zstack", "cli_4096", "cli_20480", "feature", "chained_4096",
+             "chained_20480", "auto")
+    launches = {k: sum(report[path]["launches"].get(k, 0) for path in paths) for k in sources}
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"microaligner_tpu_torch/csrc/{src}",
          "replaces": replaces, "launches": launches[k],
          "max_abs_err": kernels[k]["max_abs_err"], "ms": kernels[k]["ms"],
-         "plain_ms": kernels[k]["plain_ms"]}
+         "plain_ms": kernels[k]["plain_ms"], "bound_ms": kernels[k]["bound_ms"],
+         "bound_by": kernels[k]["bound_by"], "library_ms": kernels[k]["library_ms"]}
         for k, (name, src, replaces) in sources.items()
     ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

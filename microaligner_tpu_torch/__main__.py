@@ -4,7 +4,7 @@ PyTorch counterpart of ``microaligner_tpu/__main__.py``: one positional
 argument, the YAML config path, with the JAX package's schema.  It runs on
 the first CUDA device and raises when there is none; it never falls back to
 the CPU.  ``main(argv, device=...)`` runs it in process on another device
-(the tests use ``device="cpu"``).  Only OptFlowReg configs are ported yet.
+(the tests use ``device="cpu"``).
 """
 
 from __future__ import annotations

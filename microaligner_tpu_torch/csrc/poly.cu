@@ -1,5 +1,6 @@
 // K2: polynomial expansion of both images of a pair (poly_n = 1) plus the
-// first iteration's zero-flow normal equations.
+// first iteration's zero-flow normal equations; K6, the expansion of one
+// image (below).  Both call one __device__ function for the 3x3 moments.
 //
 // Replaces microaligner_tpu/ops/pallas_poly.py::pallas_poly_pair_m (Pallas
 // body `_pair_kernel`, moments in `_moments5`).  Inputs are the pre-smoothed
@@ -83,7 +84,43 @@ __global__ void poly_pair_m_kernel(const float* __restrict__ sp0,
   for (int ch = 0; ch < 5; ++ch) m[o + ch * hw] = mm[ch];
 }
 
+// K6: the expansion of one image, no M0.
+//
+// Replaces microaligner_tpu/ops/pallas_poly.py::pallas_poly_exp5 (Pallas body
+// `_kernel`, moments in `_moments5`), which the JAX package launches only on
+// Farneback's unpaired route (MICROALIGNER_TPU_PALLAS_POLY=1, poly_n = 1):
+// one launch for the movs, one for the refs, then the zero-flow combine.
+//
+// Bound on the H100: bytes (1 plane read, 5 written, ~20 flops a pixel).  One
+// thread per output pixel, the 3x3 window from L1 as in K2, and the same
+// moments5 as K2, so each expansion equals K2's R0/R1 bit for bit.
+__global__ void poly_exp5_kernel(const float* __restrict__ sp, float* __restrict__ r,
+                                 int h, int w, PolyCoeffs c) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= w || y >= h) return;
+  const int n = blockIdx.z;
+  const int64_t pstride = w + 2;
+  const int64_t pplane = static_cast<int64_t>(h + 2) * pstride;
+  float e[5];
+  moments5(sp + n * pplane + static_cast<int64_t>(y) * pstride + x, pstride, c, e);
+  const int64_t hw = static_cast<int64_t>(h) * w;
+  const int64_t o = static_cast<int64_t>(n) * 5 * hw + static_cast<int64_t>(y) * w + x;
+#pragma unroll
+  for (int ch = 0; ch < 5; ++ch) r[o + ch * hw] = e[ch];
+}
+
 }  // namespace
+
+extern "C" int ma_poly_exp5(const float* sp, float* r, int n, int h, int w, float g0, float g1,
+                            float xg1, float xxg1, float ig11, float ig03, float ig33, float ig55,
+                            cudaStream_t stream) {
+  const PolyCoeffs c{g0, g1, xg1, xxg1, ig11, ig03, ig33, ig55};
+  const dim3 block(32, 8);
+  const dim3 grid((w + block.x - 1) / block.x, (h + block.y - 1) / block.y, n);
+  poly_exp5_kernel<<<grid, block, 0, stream>>>(sp, r, h, w, c);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int ma_poly_pair_m(const float* sp0, const float* sp1, float* r0, float* r1,
                               float* m, int n, int h, int w, float g0, float g1, float xg1,

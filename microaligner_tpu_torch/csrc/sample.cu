@@ -11,6 +11,11 @@
 // writes one f32; neighbouring threads own neighbouring pixels, so the flow
 // reads and the store coalesce, and for smooth flows the taps of a warp fall
 // on one or two cache lines of each of two rows.
+//
+// The output (and the displacement) may be a window of oh x ow pixels whose
+// row 0 is row `row0` of the image: output pixel (x, y) samples the image at
+// (x + fx, row0 + y + fy).  The affine warps pass one band of rows at a time
+// this way; with oh = h, ow = w and row0 = 0 it is the plain K1 above.
 #include "common.cuh"
 
 namespace {
@@ -18,12 +23,13 @@ namespace {
 __global__ void sample_displaced_kernel(const float* __restrict__ img,
                                         const float* __restrict__ fx,
                                         const float* __restrict__ fy,
-                                        float* __restrict__ out, int h, int w) {
+                                        float* __restrict__ out, int h, int w, int oh,
+                                        int ow, int row0) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= w || y >= h) return;
+  if (x >= ow || y >= oh) return;
   const int64_t plane = static_cast<int64_t>(blockIdx.z) * h * w;
-  const int64_t i = plane + static_cast<int64_t>(y) * w + x;
+  const int64_t i = static_cast<int64_t>(blockIdx.z) * oh * ow + static_cast<int64_t>(y) * ow + x;
   const float dx = fx[i];
   const float dy = fy[i];
   const float x1 = floorf(dx);
@@ -31,7 +37,7 @@ __global__ void sample_displaced_kernel(const float* __restrict__ img,
   const float tx = ma::sub(dx, x1);
   const float ty = ma::sub(dy, y1);
   const int xi = x + ma::floor_index(x1);
-  const int yi = y + ma::floor_index(y1);
+  const int yi = row0 + y + ma::floor_index(y1);
   const float* p = img + plane;
   const bool x0in = xi >= 0 && xi < w;
   const bool x1in = xi + 1 >= 0 && xi + 1 < w;
@@ -96,10 +102,11 @@ __global__ void sample_displaced_multi_kernel(const float* __restrict__ img,
 }  // namespace
 
 extern "C" int ma_sample_displaced(const float* img, const float* fx, const float* fy,
-                                   float* out, int n, int h, int w, cudaStream_t stream) {
+                                   float* out, int n, int h, int w, int oh, int ow, int row0,
+                                   cudaStream_t stream) {
   const dim3 block(32, 8);
-  const dim3 grid((w + block.x - 1) / block.x, (h + block.y - 1) / block.y, n);
-  sample_displaced_kernel<<<grid, block, 0, stream>>>(img, fx, fy, out, h, w);
+  const dim3 grid((ow + block.x - 1) / block.x, (oh + block.y - 1) / block.y, n);
+  sample_displaced_kernel<<<grid, block, 0, stream>>>(img, fx, fy, out, h, w, oh, ow, row0);
   return static_cast<int>(cudaGetLastError());
 }
 

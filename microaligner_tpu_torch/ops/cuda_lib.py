@@ -1,7 +1,8 @@
 """Build, load and call the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``.  The
+The sources are compiled at first use with ``nvcc`` for ``sm_90a``, one
+process a source, all at once, and linked into one shared library with a
+plain C interface, loaded with ``ctypes``.  The
 library lands in ``microaligner_tpu_torch/_build/`` under a name that holds a
 hash of the sources and flags, so an edited source rebuilds and an unchanged
 one is reused.  Nothing here runs at import time: this module only imports
@@ -30,15 +31,16 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of each entry point; the trailing pointer is the stream
 SIGNATURES = {
-    "ma_sample_displaced": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "ma_sample_displaced": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "ma_sample_displaced_multi": (_P, _P, _P, _P, _I, _I, _I, _P),
     "ma_poly_pair_m": (_P, _P, _P, _P, _P, _I, _I, _I) + (_F,) * 8 + (_P,),
+    "ma_poly_exp5": (_P, _P, _I, _I, _I) + (_F,) * 8 + (_P,),
     "ma_smooth5_solve": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ma_smooth_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
     "ma_update_matrices": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
@@ -69,9 +71,11 @@ def _nvcc() -> str:
 def build(verbose: bool = False) -> tuple[Path, str]:
     """Compile ``csrc/*.cu`` into one library unless it is already built.
 
-    Returns ``(path, compiler output)``; the output is empty when the library
-    was reused.  ``verbose`` adds ``-Xptxas -v`` (registers, shared memory and
-    spills of every kernel) to a fresh build.
+    Each source is compiled by its own ``nvcc`` process, all started
+    together, then the objects are linked.  Returns ``(path, compiler
+    output)``; the output is empty when the library was reused.  ``verbose``
+    adds ``-Xptxas -v`` (registers, shared memory and spills of every
+    kernel) to a fresh build.
     """
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources():
@@ -81,17 +85,37 @@ def build(verbose: bool = False) -> tuple[Path, str]:
     if lib_path.exists():
         return lib_path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *(str(s) for s in sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    link = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o", str(tmp), *map(str, objs)]
+    try:
+        output = []
+        for cmd, proc in procs:
+            out = proc.communicate()[0]
+            output.append(out)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half a file
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half a file
-    return lib_path, proc.stdout + proc.stderr
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return lib_path, "".join(output)
 
 
 def library() -> ctypes.CDLL:

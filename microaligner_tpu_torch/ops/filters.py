@@ -8,9 +8,21 @@ round half to even, like OpenCV's cvRound.
 Correlations are written as shifted slices, one multiply and one add per tap
 in ascending tap order, as the JAX package writes them, so results agree
 with it to the last bit where the arithmetic is the same.
+
+DAISY's long blurs (ksize 29..63) are products with blur operators instead
+(:func:`gaussian_blur_mxu`): a dense (size, size) operator for short axes
+and one shared Toeplitz band over 512-row blocks for long ones, with the
+REFLECT_101 fold inside the operators.  The JAX package leaves these to XLA
+outside any Pallas kernel (bf16 operands on a TPU, float32 elsewhere).
+Here the products accumulate in float64 and round once to float32: a
+float32 product sums in an order that differs between the CPU's BLAS and
+cuBLAS, and those last bits flip the matcher's decisions downstream, so a
+CPU run and a card run would register to different matrices.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -18,6 +30,7 @@ import torch
 __all__ = [
     "gaussian_kernel",
     "gaussian_blur",
+    "gaussian_blur_mxu",
     "sep_filter2d",
     "dog",
     "dog_traced",
@@ -51,6 +64,87 @@ def gaussian_kernel(ksize: int, sigma: float) -> np.ndarray:
     k = np.exp(-(x**2) / (2.0 * sigma * sigma))
     k /= k.sum()
     return k.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _blur_operator(size: int, ksize: int, sigma: float) -> np.ndarray:
+    """(size, size) matrix B with ``B @ x`` == the REFLECT_101-padded
+    Gaussian correlation along a length-``size`` axis (float64, cast)."""
+    k = gaussian_kernel(ksize, sigma).astype(np.float64)
+    r = (ksize - 1) // 2
+    B = np.zeros((size, size), np.float64)
+    for t in range(ksize):
+        j = np.arange(size) + (t - r)
+        # REFLECT_101 fold, iterated for axes shorter than the kernel
+        for _ in range(max(1, (r + size - 1) // max(size - 1, 1) + 1)):
+            j = np.where(j < 0, -j, j)
+            j = np.where(j >= size, 2 * size - 2 - j, j)
+        B[np.arange(size), j] += k[t]
+    return B.astype(np.float32)
+
+
+BANDED_BLOCK = 512  # output rows per block of the banded blur
+
+
+@functools.lru_cache(maxsize=None)
+def _toeplitz_band(block: int, ksize: int, sigma: float) -> np.ndarray:
+    """(block, block + ksize - 1) correlation band: row i holds the kernel
+    at offset i; one operator for every block of a long axis."""
+    k = gaussian_kernel(ksize, sigma).astype(np.float64)
+    T = np.zeros((block, block + ksize - 1), np.float64)
+    for i in range(block):
+        T[i, i : i + ksize] = k
+    return T.astype(np.float32)
+
+
+def _operator(table: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """A float32 table as a float64 tensor on ``like``'s device."""
+    return torch.from_numpy(table).to(like.device, torch.float64)
+
+
+def _blur_axis_banded(x: torch.Tensor, axis: int, ksize: int, sigma: float) -> torch.Tensor:
+    """Banded blur along ``axis`` (-2 or -1): REFLECT_101-pad by r, zero the
+    tail to whole blocks, contract every block's window with the shared band,
+    crop.  The zero tail only feeds cropped rows."""
+    size = x.shape[axis]
+    r = (ksize - 1) // 2
+    block = BANDED_BLOCK
+    nb = -(-size // block)
+    xp = x.index_select(axis, _reflect101_index(size, r, x.device))
+    tail = nb * block - size
+    if tail:
+        shape = list(xp.shape)
+        shape[axis] = tail
+        xp = torch.cat([xp, xp.new_zeros(shape)], dim=axis)
+    T = _operator(_toeplitz_band(block, ksize, float(sigma)), x)
+    win = block + 2 * r
+    # (..., nb, win) windows of the axis, stride `block`
+    if axis in (-1, x.dim() - 1):
+        wins = xp.unfold(-1, win, block)  # (..., nb, win)
+        out = torch.matmul(wins, T.T)  # (..., nb, block)
+        return out.reshape(*x.shape[:-1], nb * block)[..., :size]
+    wins = xp.unfold(-2, win, block)  # (..., nb, W, win)
+    out = torch.matmul(T, wins.transpose(-1, -2))  # (..., nb, block, W)
+    return out.reshape(*x.shape[:-2], nb * block, x.shape[-1])[..., :size, :]
+
+
+def gaussian_blur_mxu(x: torch.Tensor, ksize: int, sigma: float) -> torch.Tensor:
+    """Gaussian blur of a (..., H, W) float32 stack along the last two axes
+    as blur-operator products (REFLECT_101, same size): the JAX package's
+    ``gaussian_blur_mxu`` with its float32 operators, accumulated in
+    float64 and rounded to float32 at the end.  Axes longer than
+    ``BANDED_BLOCK + ksize - 1`` take the banded operator."""
+    h, w = x.shape[-2], x.shape[-1]
+    y = x.to(torch.float64)
+    if h > BANDED_BLOCK + ksize - 1:
+        y = _blur_axis_banded(y, -2, ksize, sigma)
+    else:
+        y = torch.matmul(_operator(_blur_operator(h, ksize, float(sigma)), y), y)
+    if w > BANDED_BLOCK + ksize - 1:
+        y = _blur_axis_banded(y, -1, ksize, sigma)
+    else:
+        y = torch.matmul(y, _operator(_blur_operator(w, ksize, float(sigma)), y).T)
+    return y.to(x.dtype)
 
 
 def _taps(kernel) -> list[float]:

@@ -1,4 +1,5 @@
-"""K2: polynomial expansion of an image pair plus the zero-flow equations.
+"""K2: polynomial expansion of an image pair plus the zero-flow equations,
+and K6, the expansion of one image.
 
 Replaces ``microaligner_tpu/ops/pallas_poly.py::pallas_poly_pair_m`` (Pallas
 body ``_pair_kernel``, moments in ``_moments5``), which starts every
@@ -15,6 +16,15 @@ fifteen out, about forty flops a pixel.  One thread per pixel reads its 3x3
 window of both images (neighbours share rows through L1) and writes all
 fifteen outputs, so the expansion is never re-read from device memory to
 build M0.
+
+K6 (:func:`poly_exp5`, ``csrc/poly.cu``) replaces
+``microaligner_tpu/ops/pallas_poly.py::pallas_poly_exp5`` (Pallas body
+``_kernel``): the expansion of one (N, H+2, W+2) padded image into
+(N, 5, H, W), no M0.  It runs only on Farneback's unpaired route
+(``optflow/farneback.py::_poly_exp_batched``).  It is bound by bytes (one
+plane in, five out) and calls the same ``moments5`` device function as K2,
+so its output equals K2's R0 and R1, and :func:`poly_exp5_plain`, bit for
+bit.
 """
 
 from __future__ import annotations
@@ -24,7 +34,7 @@ import torch
 from microaligner_tpu_torch.ops import cuda_lib
 from microaligner_tpu_torch.ops.kernel_matrices import zero_flow_matrices
 
-__all__ = ["poly_pair_m", "poly_pair_m_plain", "poly_exp5_plain"]
+__all__ = ["poly_pair_m", "poly_pair_m_plain", "poly_exp5", "poly_exp5_plain"]
 
 
 def _f32(v: float) -> float:
@@ -33,13 +43,15 @@ def _f32(v: float) -> float:
 
 
 def poly_exp5_plain(sp: torch.Tensor, coeffs: tuple) -> torch.Tensor:
-    """(..., H+2, W+2) replicate-padded image -> (..., 5, H, W) expansion.
+    """(..., H+2, W+2) replicate-padded image -> (..., 5, H, W) expansion;
+    the plain version of K6, and half of K2's.
 
     ``coeffs`` is ``(g0, g1, xg1, xxg1, ig11, ig03, ig33, ig55)``
     (optflow/farneback.py::_poly_coeff_tuple).  Taps are summed vertical
     first, then horizontal, in the order of the reference
     ``_poly_exp_cf`` (zero taps skipped).
     """
+    poly_exp5_plain.calls += 1
     g0, g1, xg1, xxg1, ig11, ig03, ig33, ig55 = (_f32(c) for c in coeffs)
     h, w = sp.shape[-2] - 2, sp.shape[-1] - 2
     up, mid, dn = sp[..., 0:h, :], sp[..., 1 : h + 1, :], sp[..., 2 : h + 2, :]
@@ -61,6 +73,41 @@ def poly_exp5_plain(sp: torch.Tensor, coeffs: tuple) -> torch.Tensor:
         [b3 * ig11, b2 * ig11, b5 * ig33 + b1 * ig03, b4 * ig33 + b1 * ig03, b6 * ig55],
         dim=-3,
     )
+
+
+poly_exp5_plain.calls = 0
+
+
+def _check_padded(name: str, t: torch.Tensor, device) -> None:
+    if t.dtype != torch.float32 or not t.is_contiguous() or t.device != device:
+        raise ValueError(f"{name} must be contiguous float32 on one device")
+
+
+def _check_coeffs(name: str, coeffs: tuple) -> None:
+    if len(coeffs) != 8:
+        raise ValueError(f"{name}: coeffs is (g0, g1, xg1, xxg1, ig11, ig03, ig33, ig55)")
+
+
+def poly_exp5(sp: torch.Tensor, coeffs: tuple) -> torch.Tensor:
+    """Expansion (N, 5, H, W) of a pre-smoothed, padded (N, H+2, W+2)
+    float32 image.  A CPU tensor takes the plain version; a CUDA tensor
+    launches K6 or raises."""
+    if sp.dim() != 3 or sp.shape[1] < 3 or sp.shape[2] < 3:
+        raise ValueError(f"poly_exp5 takes an (N, H+2, W+2) tensor, got {tuple(sp.shape)}")
+    _check_padded("poly_exp5: sp", sp, sp.device)
+    _check_coeffs("poly_exp5", coeffs)
+    if sp.device.type == "cpu":
+        return poly_exp5_plain(sp, coeffs)
+    cuda_lib.require_cuda(sp)
+    n, h, w = sp.shape[0], sp.shape[1] - 2, sp.shape[2] - 2
+    cuda_lib.check_grid("poly_exp5", n, -(-h // 8))  # 32 x 8 threads a block
+    r = torch.empty((n, 5, h, w), dtype=torch.float32, device=sp.device)
+    cuda_lib.call("ma_poly_exp5", sp.device, sp, r, n, h, w, *(_f32(c) for c in coeffs))
+    poly_exp5.launches += 1
+    return r
+
+
+poly_exp5.launches = 0
 
 
 def poly_pair_m_plain(sp0: torch.Tensor, sp1: torch.Tensor, coeffs: tuple):
@@ -85,10 +132,8 @@ def poly_pair_m(sp0: torch.Tensor, sp1: torch.Tensor, coeffs: tuple):
             f"got {tuple(sp0.shape)} and {tuple(sp1.shape)}"
         )
     for name, t in (("sp0", sp0), ("sp1", sp1)):
-        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != sp0.device:
-            raise ValueError(f"poly_pair_m: {name} must be contiguous float32 on one device")
-    if len(coeffs) != 8:
-        raise ValueError("poly_pair_m: coeffs is (g0, g1, xg1, xxg1, ig11, ig03, ig33, ig55)")
+        _check_padded(f"poly_pair_m: {name}", t, sp0.device)
+    _check_coeffs("poly_pair_m", coeffs)
     if sp0.device.type == "cpu":
         return poly_pair_m_plain(sp0, sp1, coeffs)
     cuda_lib.require_cuda(sp0, sp1)

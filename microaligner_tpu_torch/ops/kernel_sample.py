@@ -15,6 +15,13 @@ fy and four taps and writes one f32 per pixel.  One thread per pixel gathers
 its taps directly, so it is exact for any displacement and needs none of the
 TPU kernel's band of shifted views or its exact-gather fallback.
 
+The output may be a window: ``fx``/``fy`` of (N, oh, ow) whose row 0 is row
+``row0`` of the (N, H, W) image (output pixel (x, y) samples the image at
+(x + fx, row0 + y + fy)).  The affine warps (``ops/affine_tiled.py``) pass one
+band of output rows at a time this way, so they never hold a whole-plane
+displacement field; the default (oh, ow) = (H, W), ``row0`` = 0 is the
+plain K1.
+
 K5 (:func:`sample_displaced_multi`, ``csrc/sample.cu``) replaces
 ``microaligner_tpu/ops/pallas_sample.py::pallas_sample_displaced_multi``, the
 z-stack apply: every plane of a cycle pulled by the cycle's one flow.  Its
@@ -64,61 +71,71 @@ def bilinear_taps(flat: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
     return out
 
 
-def split_displacement(fx: torch.Tensor, fy: torch.Tensor):
-    """Integer corners (absolute, int64) and fractions of p + (fx, fy)."""
+def split_displacement(fx: torch.Tensor, fy: torch.Tensor, row0: int = 0):
+    """Integer corners (absolute, int64) and fractions of p + (fx, fy); the
+    displacement's row 0 is image row ``row0``."""
     h, w = fx.shape[-2:]
     x1 = torch.floor(fx)
     y1 = torch.floor(fy)
     tx = fx - x1
     ty = fy - y1
     gx = torch.arange(w, device=fx.device).view(1, w)
-    gy = torch.arange(h, device=fx.device).view(h, 1)
+    gy = torch.arange(row0, row0 + h, device=fx.device).view(h, 1)
     x0 = gx + x1.clamp(-_IDX_LIMIT, _IDX_LIMIT).to(torch.int64)
     y0 = gy + y1.clamp(-_IDX_LIMIT, _IDX_LIMIT).to(torch.int64)
     return x0, y0, tx, ty
 
 
-def sample_displaced_plain(img: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of K1: (N, H, W) f32 image and displacements."""
+def sample_displaced_plain(img: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor,
+                           row0: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of K1: (N, H, W) f32 image, (N, oh, ow) f32
+    displacements whose row 0 is image row ``row0``."""
     sample_displaced_plain.calls += 1
     n, h, w = img.shape
-    x0, y0, tx, ty = split_displacement(fx, fy)
+    x0, y0, tx, ty = split_displacement(fx, fy, row0)
     return bilinear_taps(img.reshape(n, h * w), x0, y0, tx, ty, h, w)
 
 
 sample_displaced_plain.calls = 0
 
 
-def _check(img, fx, fy):
-    if img.dim() != 3:
+def _check(img, fx, fy, row0):
+    if img.dim() != 3 or fx.dim() != 3:
         raise ValueError(f"sample_displaced takes (N, H, W) tensors, got {tuple(img.shape)}")
     for name, t in (("img", img), ("fx", fx), ("fy", fy)):
         if t.dtype != torch.float32:
             raise TypeError(f"sample_displaced: {name} must be float32, got {t.dtype}")
-        if t.shape != img.shape:
+        if t.shape != fx.shape and name != "img":
             raise ValueError(
-                f"sample_displaced: {name} shape {tuple(t.shape)} != {tuple(img.shape)}"
+                f"sample_displaced: {name} shape {tuple(t.shape)} != {tuple(fx.shape)}"
             )
         if t.device != img.device:
             raise ValueError(f"sample_displaced: {name} on {t.device}, img on {img.device}")
         if not t.is_contiguous():
             raise ValueError(f"sample_displaced: {name} must be contiguous")
+    if fx.shape[0] != img.shape[0] or not 0 <= row0 <= 2**30:
+        raise ValueError(f"sample_displaced: {tuple(fx.shape)} displacements for "
+                         f"{tuple(img.shape)} images at row {row0}")
 
 
-def sample_displaced(img: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor) -> torch.Tensor:
+def sample_displaced(img: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor,
+                     row0: int = 0) -> torch.Tensor:
     """Batched ``out(p) = bilinear img(p + (fx, fy)(p))``, zero outside.
 
-    ``img``, ``fx``, ``fy`` are (N, H, W) float32 on one device.  A CPU
-    tensor takes the plain version; a CUDA tensor launches K1 or raises.
+    ``img`` is (N, H, W) float32; ``fx``, ``fy`` and the output are
+    (N, oh, ow), a window whose row 0 is image row ``row0`` (by default the
+    whole image).  A CPU tensor takes the plain version; a CUDA tensor
+    launches K1 or raises.
     """
-    _check(img, fx, fy)
+    _check(img, fx, fy, row0)
     if img.device.type == "cpu":
-        return sample_displaced_plain(img, fx, fy)
+        return sample_displaced_plain(img, fx, fy, row0)
     cuda_lib.require_cuda(img, fx, fy)
     n, h, w = img.shape
-    cuda_lib.check_grid("sample_displaced", n, -(-h // 8))  # 32 x 8 threads a block
-    out = torch.empty_like(img)
-    cuda_lib.call("ma_sample_displaced", img.device, img, fx, fy, out, n, h, w)
+    oh, ow = fx.shape[1:]
+    cuda_lib.check_grid("sample_displaced", n, -(-oh // 8))  # 32 x 8 threads a block
+    out = torch.empty_like(fx)
+    cuda_lib.call("ma_sample_displaced", img.device, img, fx, fy, out, n, h, w, oh, ow, row0)
     sample_displaced.launches += 1
     return out
 

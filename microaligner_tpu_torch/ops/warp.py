@@ -13,12 +13,19 @@ counterpart here.
 
 Layouts are the JAX package's: images (H, W) or (N, H, W[, C]), flows
 (H, W, 2) or (N, H, W, 2) with channel 0 = x.
+
+The affine warps (:func:`affine_warp`, :func:`transform_img_with_tmat`,
+``cv.warpAffine``) invert the matrix on the host (pinv of the 3 x 3
+homogeneous form) and sample through K1 one band of rows at a time
+(``ops/affine_tiled.py``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from microaligner_tpu_torch.ops.affine_tiled import affine_warp_bands
 from microaligner_tpu_torch.ops.filters import round_to_dtype
 from microaligner_tpu_torch.ops.kernel_sample import (
     bilinear_taps,
@@ -36,6 +43,8 @@ __all__ = [
     "warp_planes_with_flow_parts",
     "compose_flows",
     "compose_flows_batched",
+    "affine_warp",
+    "transform_img_with_tmat",
 ]
 
 
@@ -129,3 +138,40 @@ def compose_flows(flow1: torch.Tensor, flow2: torch.Tensor) -> torch.Tensor:
     """Compose two (H, W, 2) flows: ``flow1 + remap(flow2, -flow1 + grid)``,
     returning one of them verbatim when the other's max is 0."""
     return compose_flows_batched(flow1[None], flow2[None])[0]
+
+
+def inverse_of(t_mat) -> np.ndarray:
+    """The dst -> src 2x3 matrix of a forward 2x3 ``t_mat``: pinv of the
+    homogeneous 3 x 3 in float64 (singular matrices included, as the
+    reference's transform_img_with_tmat)."""
+    t = np.asarray(t_mat, dtype=np.float64)
+    return np.linalg.pinv(np.vstack([t, [0.0, 0.0, 1.0]]))[:2]
+
+
+def affine_warp(img, t_mat, dsize: tuple[int, int] | None = None, device=None) -> torch.Tensor:
+    """``cv.warpAffine(img, t_mat, dsize)``: ``t_mat`` maps src coords to dst
+    coords; ``dsize`` is (H, W), by default the input's.  Float32 output on
+    ``device`` (by default the device of ``img``; numpy goes to the CPU)."""
+    img = torch.as_tensor(img)
+    if device is not None:
+        img = img.to(device)
+    out_h, out_w = dsize if dsize is not None else img.shape[:2]
+    return affine_warp_bands(img, inverse_of(t_mat), int(out_h), int(out_w))
+
+
+def transform_img_with_tmat(img, target_shape, transform_matrix, device=None) -> np.ndarray:
+    """Pad ``img`` (numpy, 2-D) to ``target_shape``, then apply the affine,
+    keeping the dtype (reference shared_modules/utils.py:98-114): an
+    identity matrix skips the warp; otherwise the bilinear output is cast
+    with numpy's truncating ``astype``, as the reference casts after its
+    skimage warp.  The warp runs on ``device`` (default CPU)."""
+    from microaligner_tpu_torch.ops.pad import pad_to_shape
+
+    original_dtype = np.asarray(img).dtype
+    img, _ = pad_to_shape(np.asarray(img), tuple(target_shape))
+    tm = np.asarray(transform_matrix, np.float64)
+    if np.array_equal(tm, np.array([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]])):
+        return np.asarray(img).astype(original_dtype)
+    src = torch.from_numpy(np.ascontiguousarray(img).astype(np.float32))
+    out = affine_warp(src, tm, device=device or "cpu").cpu().numpy()
+    return out.astype(original_dtype)

@@ -18,11 +18,25 @@ Stages, on (N, H, W) batches with the flow kept as separate x and y planes:
 
 All of it runs in float32; borders replicate, as in OpenCV, except the
 pre-smooth's REFLECT_101.
+
+The unpaired route.  With ``MICROALIGNER_TPU_PALLAS_POLY=1`` in the
+environment and ``poly_n == 1``, stage 2 runs as the JAX package's unpaired
+branch instead: K6 (:func:`~microaligner_tpu_torch.ops.kernel_poly.poly_exp5`)
+expands the movs and the refs in one launch each, and
+``zero_flow_matrices`` builds M0.  This is the JAX package's own switch;
+the port adds no other.  The JAX package takes that branch only when its
+pair kernel's self-test gate fails, and reads the variable at trace time,
+so a change mid-process is ignored after the first trace; the port has no
+gates, so the variable alone picks the route, and it is read on every call
+of :func:`_farneback_core_parts`.  Both routes give the same flow bit for
+bit: K2's plain version is two expansions plus the same combine, and each
+kernel equals its plain version.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -36,9 +50,11 @@ from microaligner_tpu_torch.ops.kernel_matrices import (
     update_matrices,
     zero_flow_matrices,
 )
-from microaligner_tpu_torch.ops.kernel_poly import poly_pair_m
+from microaligner_tpu_torch.ops.kernel_poly import poly_exp5, poly_pair_m
 
 __all__ = ["farneback", "poly_exp"]
+
+PALLAS_POLY_ENV = "MICROALIGNER_TPU_PALLAS_POLY"
 
 # the JAX package's names for tables and maps that live beside the kernels here
 _BORDER_SCALE = BORDER_SCALE
@@ -152,6 +168,26 @@ def _poly_pair_m(movs: torch.Tensor, refs: torch.Tensor, n: int, sigma: float):
     return r0, r1, zero_flow_matrices(r0, r1)
 
 
+def _poly_exp_batched_pallas(imgs: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
+    """(N, H, W) -> (N, 5, H, W): pre-smooth, one replicated pixel of pad,
+    then K6 (``poly_n`` must be 1)."""
+    sp = _pad_replicate1(_pre_smooth(imgs))
+    return poly_exp5(sp, _poly_coeff_tuple(n, sigma))
+
+
+def _poly_exp_batched(imgs: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
+    """Batched pre-smooth + polynomial expansion, (N, H, W) -> (N, 5, H, W):
+    K6 for ``n == 1`` under the switch, the plain expansion otherwise."""
+    if n == 1 and _unpaired_route():
+        return _poly_exp_batched_pallas(imgs, n, sigma)
+    return _poly_exp_cf(_pre_smooth(imgs), n, sigma)
+
+
+def _unpaired_route() -> bool:
+    """``MICROALIGNER_TPU_PALLAS_POLY=1``, read anew on every call."""
+    return os.environ.get(PALLAS_POLY_ENV) == "1"
+
+
 def _farneback_core_parts(
     movs: torch.Tensor,
     refs: torch.Tensor,
@@ -163,7 +199,12 @@ def _farneback_core_parts(
     """Batched (N, H, W) Farneback -> (fx, fy), each (N, H, W) float32."""
     if num_iter < 1:
         raise ValueError(f"farneback requires num_iter >= 1, got {num_iter}")
-    r0, r1, m = _poly_pair_m(movs, refs, poly_n, poly_sigma)
+    if poly_n == 1 and _unpaired_route():
+        r0 = _poly_exp_batched(movs, poly_n, poly_sigma)
+        r1 = _poly_exp_batched(refs, poly_n, poly_sigma)
+        m = zero_flow_matrices(r0, r1)
+    else:
+        r0, r1, m = _poly_pair_m(movs, refs, poly_n, poly_sigma)
     fx = fy = None
     for i in range(num_iter):
         fx, fy = smooth5_solve(m, win_size)

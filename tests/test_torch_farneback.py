@@ -26,7 +26,7 @@ import jax.numpy as jnp
 
 from microaligner_tpu.ops.pallas_agg import pallas_smooth5_solve, pallas_smooth_w
 from microaligner_tpu.ops.pallas_matrices import pallas_update_matrices
-from microaligner_tpu.ops.pallas_poly import pallas_poly_pair_m
+from microaligner_tpu.ops.pallas_poly import pallas_poly_exp5, pallas_poly_pair_m
 from microaligner_tpu_torch.ops import kernel_agg, kernel_matrices, kernel_poly
 from microaligner_tpu_torch.optflow import farneback as tfb
 
@@ -192,6 +192,52 @@ def test_farneback_general_poly_n(rng):
     got = tfb.farneback(mov, ref, win_size=21, num_iter=2, poly_n=2, poly_sigma=1.5).numpy()
     want = np.asarray(jfb.farneback(mov, ref, win_size=21, num_iter=2, poly_n=2, poly_sigma=1.5))
     err = np.abs(got - want)
+    assert err.mean() < 1e-4 and err.max() < 1e-2
+
+
+@pytest.mark.parametrize("n,h,w", [(2, 50, 70), (1, 20, 140)])
+def test_k6_plain_matches_pallas_and_k2(rng, n, h, w):
+    """K6's wrapper on CPU tensors (its plain version) against
+    ``pallas_poly_exp5`` in interpret mode, and bit for bit against K2's
+    expansions (the route switch below relies on it)."""
+    movs, refs, sp0, sp1 = _padded_pair(rng, n, h, w)
+    coeffs = jfb._poly_coeff_tuple(1, 1.7)
+    before = (kernel_poly.poly_exp5_plain.calls, kernel_poly.poly_exp5.launches)
+    got = kernel_poly.poly_exp5(torch.from_numpy(sp0), coeffs)
+    assert kernel_poly.poly_exp5_plain.calls == before[0] + 1
+    assert kernel_poly.poly_exp5.launches == before[1]  # CPU: never the kernel
+    _assert_rel(got.numpy(), pallas_poly_exp5(jnp.asarray(sp0), coeffs, interpret=True))
+    r0, _, _ = kernel_poly.poly_pair_m(torch.from_numpy(sp0), torch.from_numpy(sp1), coeffs)
+    assert torch.equal(got, r0)
+    with pytest.raises(ValueError):
+        kernel_poly.poly_exp5(torch.from_numpy(sp0).double(), coeffs)
+    with pytest.raises(ValueError):
+        kernel_poly.poly_exp5(torch.from_numpy(sp0)[0], coeffs)
+
+
+@pytest.mark.parametrize("num_iter,win", [(1, 31), (3, 51)])
+def test_unpaired_route_equals_default_route(rng, monkeypatch, num_iter, win):
+    """``MICROALIGNER_TPU_PALLAS_POLY=1`` sends ``_farneback_core_parts``
+    through K6 (two expansions, then the zero-flow combine) instead of K2;
+    the flow is the same bit for bit, and the variable is read per call."""
+    mov, ref = _shifted_pair(rng, h=90, w=110)
+    movs = torch.from_numpy(mov.astype(np.float32))[None]
+    refs = torch.from_numpy(ref.astype(np.float32))[None]
+    monkeypatch.delenv("MICROALIGNER_TPU_PALLAS_POLY", raising=False)
+    calls = kernel_poly.poly_pair_m_plain.calls
+    want = tfb._farneback_core_parts(movs, refs, win, num_iter, 1, 1.7)
+    assert kernel_poly.poly_pair_m_plain.calls == calls + 1
+    monkeypatch.setenv("MICROALIGNER_TPU_PALLAS_POLY", "1")
+    calls = (kernel_poly.poly_pair_m_plain.calls, kernel_poly.poly_exp5_plain.calls)
+    got = tfb._farneback_core_parts(movs, refs, win, num_iter, 1, 1.7)
+    assert kernel_poly.poly_pair_m_plain.calls == calls[0]
+    assert kernel_poly.poly_exp5_plain.calls == calls[1] + 2
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    np.testing.assert_array_equal(  # poly_n != 1 keeps the plain expansion
+        tfb._poly_exp_batched(movs, 2, 1.5).numpy(), tfb._poly_exp_cf(tfb._pre_smooth(movs), 2, 1.5).numpy())
+    jflow = np.asarray(jfb.farneback(mov, ref, win_size=win, num_iter=num_iter))
+    err = np.abs(torch.stack([got[0][0], got[1][0]], -1).numpy() - jflow)
     assert err.mean() < 1e-4 and err.max() < 1e-2
 
 

@@ -1,5 +1,6 @@
-"""K1-K5 on the card against their plain PyTorch versions on the same card,
-and the pinned, streamed apply of the CLI on the card.
+"""K1-K6 on the card against their plain PyTorch versions on the same card,
+the affine warp through K1's row window, the unpaired Farneback route
+(K6), and the pinned, streamed apply of the CLI on the card.
 
 These tests need an NVIDIA GPU and nvcc: the kernels are CUDA C++ with no
 CPU build, so without a card every test here skips.  The file imports only
@@ -11,8 +12,12 @@ Each kernel rounds at the same places, in the same order, as its plain
 version (no FMA contraction), so the bars below are upper bounds on what
 is expected to be bitwise equal: K1 atol 1e-5 on unit-range data, K2/K4
 1e-5 x max|plain| + 1e-6, K3 1e-4 px.  K5 is held to its plain version and
-to one K1 launch per plane with no tolerance: it rounds as K1 does.
+to one K1 launch per plane with no tolerance: it rounds as K1 does.  K6 is
+held bit for bit to its plain version and to K2's expansions (the same
+moments5 device function), and K1's row window bit for bit to the plain
+version's.
 """
+
 
 import numpy as np
 import pytest
@@ -150,6 +155,58 @@ def test_k5(gen, dev, n, h, w, spread):
     per_plane = kernel_sample.sample_displaced(imgs, fx.expand(n, h, w).contiguous(),
                                                fy.expand(n, h, w).contiguous())
     assert torch.equal(got, per_plane)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w", [(2, 300, 1001), (1, 1, 45), (3, 2, 3), (1, 40, 1)])
+def test_k6(gen, dev, n, h, w):
+    a, b, coeffs = _k2_inputs(gen, dev, n, h, w)
+    launches = kernel_poly.poly_exp5.launches
+    got = kernel_poly.poly_exp5(a, coeffs)
+    torch.cuda.synchronize()
+    assert kernel_poly.poly_exp5.launches == launches + 1
+    assert torch.equal(got, kernel_poly.poly_exp5_plain(a, coeffs))
+    assert torch.equal(got, kernel_poly.poly_pair_m(a, b, coeffs)[0])
+
+
+@pytest.mark.cuda
+def test_unpaired_route_on_card_equals_default(gen, dev, monkeypatch):
+    mov, ref = _smooth_pair(gen, dev, 2, 200, 260)
+    monkeypatch.delenv("MICROALIGNER_TPU_PALLAS_POLY", raising=False)
+    want = tfb._farneback_core_parts(mov, ref, 51, 3, 1, 1.7)
+    monkeypatch.setenv("MICROALIGNER_TPU_PALLAS_POLY", "1")
+    k2, k6 = kernel_poly.poly_pair_m.launches, kernel_poly.poly_exp5.launches
+    got = tfb._farneback_core_parts(mov, ref, 51, 3, 1, 1.7)
+    torch.cuda.synchronize()
+    assert kernel_poly.poly_pair_m.launches == k2 and kernel_poly.poly_exp5.launches == k6 + 2
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("oh,ow,row0", [(37, 1001, 100), (300, 700, 0), (5, 9, 290)])
+def test_k1_row_window(gen, dev, oh, ow, row0):
+    img = torch.from_numpy(gen.random((2, 300, 1001), dtype=np.float32)).to(dev)
+    fx = torch.from_numpy(((gen.random((2, oh, ow)) - 0.5) * 30).astype(np.float32)).to(dev)
+    fy = torch.from_numpy(((gen.random((2, oh, ow)) - 0.5) * 30).astype(np.float32)).to(dev)
+    got = kernel_sample.sample_displaced(img, fx, fy, row0=row0)
+    assert torch.equal(got, kernel_sample.sample_displaced_plain(img, fx, fy, row0=row0))
+
+
+@pytest.mark.cuda
+def test_affine_warp_on_card_matches_cpu(gen, dev):
+    from microaligner_tpu_torch.ops.affine_tiled import affine_warp_bands, affine_warp_traced
+    from microaligner_tpu_torch.ops.warp import inverse_of
+
+    img = torch.from_numpy(gen.random((700, 900), dtype=np.float32) * 255)
+    t = np.array([[1.0004, 0.0003, 37.4], [-0.0003, 1.0004, -21.7]])
+    launches = kernel_sample.sample_displaced.launches
+    got = affine_warp_bands(img.to(dev), inverse_of(t), 700, 900, band_rows=128)
+    assert kernel_sample.sample_displaced.launches == launches + 6
+    assert torch.equal(got.cpu(), affine_warp_bands(img, inverse_of(t), 700, 900, band_rows=128))
+    fwd = torch.from_numpy(t.astype(np.float32))
+    got = affine_warp_traced(img.to(dev), fwd.to(dev))
+    assert torch.equal(got.cpu(), affine_warp_traced(img, fwd))
 
 
 @pytest.mark.cuda

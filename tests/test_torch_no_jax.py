@@ -14,7 +14,7 @@ import microaligner_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-pkg.OptFlowRegistrator, pkg.Warper
+pkg.OptFlowRegistrator, pkg.Warper, pkg.FeatureRegistrator, pkg.transform_img_with_tmat
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "microaligner_tpu.")))
 print(len(names))
 print(",".join(bad))
@@ -28,6 +28,7 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     count, bad = (out.stdout.splitlines() + [""])[:2]
     # every module of the package was imported: 26 with the registration
-    # path, 36 with the CLI's host layer (io, _native, pipeline, __main__)
-    assert int(count) >= 36, out.stdout
+    # path, 36 with the CLI's host layer (io, _native, pipeline, __main__),
+    # 45 with the feature engine (features/, ops/affine_tiled, tiles/compat)
+    assert int(count) >= 45, out.stdout
     assert bad == "", f"port modules pulled in: {bad}"

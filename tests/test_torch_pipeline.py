@@ -21,9 +21,9 @@ A u32 stack, which the JAX CLI cannot apply (its clip to ``iinfo(uint32)``
 overflows in 32-bit mode, ROADMAP queue 3), goes through the port's float32
 warp with the round and clip on the host: it gives the u16 run's planes.
 One file per cycle and channel (CycleBuilder) gives the CycleStack run's
-planes.  FeatureReg configs, and per-cycle inputs whose sizes differ (which
-the JAX package would send through FeatureReg first), raise
-``NotImplementedError``.
+planes.  A config with FeatureReg runs both stages, and per-cycle inputs
+whose sizes differ get a FeatureReg pass first, as in the JAX package
+(their parity with the JAX CLI is in tests/test_torch_pipeline_chained.py).
 """
 
 import os
@@ -219,19 +219,34 @@ def test_cycle_builder_gives_the_stack_planes(data, tmp_path):
 
 
 def test_feature_reg_config_raises(data, tmp_path):
-    d, _, _ = data
+    """A config with FeatureReg no longer raises: both stages run, the flow
+    stage on the FeatureReg stack."""
+    d, cyc1, cyc2 = data
     cfg = _config({"CycleStack": str(d / "stack.ome.tif")}, tmp_path / "o", True, feature=True)
-    with pytest.raises(NotImplementedError, match="FeatureReg"):
-        main([str(_write_config(tmp_path / "f.yaml", cfg))], device="cpu")
+    main([str(_write_config(tmp_path / "f.yaml", cfg))], device="cpu")
+    assert sorted(p.name for p in (tmp_path / "o").iterdir()) == [
+        "feature_reg_parameters.csv", "t_feature_reg_result_stack.tif", "t_optflow_reg_result_stack.tif"]
+    _, shape, pages = _pages(tmp_path / "o" / "t_optflow_reg_result_stack.tif")
+    assert shape == (4, NZ, H, W)
+    np.testing.assert_array_equal(pages[0], cyc1[0][0])
+    ref, mov = cyc1[0][0][INNER].astype(float), cyc2[0][0][INNER].astype(float)
+    assert np.mean((pages[4][INNER].astype(float) - ref) ** 2) < 0.05 * np.mean((mov - ref) ** 2)
 
 
-def test_mismatched_dims_raise(data, tmp_path):
-    d, _, _ = data
+def test_mismatched_dims_raise(data, tmp_path, capsys):
+    """Per-cycle inputs of unequal size no longer raise: FeatureReg runs
+    first, with the OptFlowReg parameters, and pads cycle 2 to cycle 1's
+    size."""
+    d, cyc1, _ = data
     paths = [d / "cyc1.ome.tif", d / "cyc2_small.ome.tif"]
     assert get_target_shape(paths) == (H, W)
     cfg = _config({"Cycle 1": str(paths[0]), "Cycle 2": str(paths[1])}, tmp_path / "o", True)
-    with pytest.raises(NotImplementedError, match="dimensions do not match"):
-        main([str(_write_config(tmp_path / "m.yaml", cfg))], device="cpu")
+    main([str(_write_config(tmp_path / "m.yaml", cfg))], device="cpu")
+    assert "Will try to perform FeatureReg first" in capsys.readouterr().out
+    for name in ("t_feature_reg_result_stack.tif", "t_optflow_reg_result_stack.tif"):
+        _, shape, pages = _pages(tmp_path / "o" / name)
+        assert shape == (4, NZ, H, W)
+        np.testing.assert_array_equal(pages[0], cyc1[0][0])
 
 
 def test_cli_refuses_without_a_card(data, tmp_path):
