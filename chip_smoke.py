@@ -42,9 +42,11 @@ Run it from the repository root; it needs one card and takes no arguments.  Phas
    registered planes' interior MSE to cycle 1 below a quarter of the
    unregistered MSE;
 7. FeatureReg: ``FeatureRegistrator.register`` on config 1's pair of the
-   JAX package's bench (4096^2, ``t_true`` of ``bench.py::bench_feature``)
-   on the card and on the CPU (the corners within 1e-3 px of each other
-   and within 0.5 px of the truth), then on a 20480^2 pair;
+   JAX package's bench (4096^2, ``t_true`` of ``bench.py::bench_feature``),
+   two textures, each on the card and on the CPU (the corners within 1e-3
+   px of each other and within 0.5 px of the truth), then on a 20480^2
+   pair with the stage timers on (each level's find, match, RANSAC and
+   gate, summed over the iterations);
 8. the chained CLI (``config_with_all_info.yaml``'s parameters: FeatureReg,
    then OptFlowReg) at 4096^2 (3 cycles x 2 channels x 3 z, one OME-TIFF a
    cycle) and 20480^2 (2 x 2 x 1, one CycleStack).  Cycle 2 is the
@@ -967,55 +969,71 @@ def inverse2x3(fwd) -> np.ndarray:
     return np.linalg.inv(np.vstack([np.asarray(fwd, np.float64), [0.0, 0.0, 1.0]]))[:2]
 
 
-def feature_pairs(dev, rng, counters: "Counters", sizes=(4096, 20480)) -> dict:
+def feature_pairs(dev, rng, counters: "Counters", sizes=(4096, 20480), cpu_pairs=2) -> dict:
     """Config 1 of the JAX package's bench (``bench.py::bench_feature``):
     ``FeatureRegistrator`` (3 levels [8, 4, 2], 3 iterations, tile 1000,
-    DoG) on a 4096^2 u8 pair moved by ``t_true``, on the card and on the
-    CPU; then a 20480^2 pair on the card."""
+    DoG) on 4096^2 u8 pairs moved by ``t_true``, ``cpu_pairs`` textures,
+    each on the card and on the CPU; then a 20480^2 pair on the card with
+    the stage timers on (each level's find, match, RANSAC and gate)."""
     from microaligner_tpu_torch.features import FeatureRegistrator
     from microaligner_tpu_torch.ops.filters import minmax_normalize_u8
 
     t_true = np.array([[1.0004, 0.0003, 6.4], [-0.0003, 1.0004, -9.1]])
     truth = inverse2x3(t_true)  # register() maps mov coords to ref coords
-    res = {}
-    for n in sizes:
+    res, launches = {}, []
+    cases = [(sizes[0], p) for p in range(cpu_pairs)] + [(n, 0) for n in sizes[1:]]
+    for n, pair in cases:
+        key = f"{n}" if pair == 0 else f"{n}_pair{pair + 1}"
         t0 = time.perf_counter()
         ref = minmax_normalize_u8(texture(rng, n, n, dev)).cpu().numpy()
         mov = np.clip(np.round(warp_affine_scipy(ref, t_true)), 0, 255).astype(np.uint8)
-        log(f"[feature] {n}^2 u8 pair made in {time.perf_counter() - t0:.2f} s")
+        log(f"[feature] {key}: {n}^2 u8 pair made in {time.perf_counter() - t0:.2f} s")
         runs = {}
         for where in (("cuda", "cpu") if n == sizes[0] else ("cuda",)):
             reg = FeatureRegistrator(device=dev if where == "cuda" else "cpu")
             reg.num_pyr_lvl, reg.num_iterations, reg.tile_size, reg.use_dog = 3, 3, 1000, True
             reg.ref_img, reg.mov_img = ref, mov
+            profile = where == "cuda" and n != sizes[0]
             if where == "cuda":
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats(dev)
                 counters.reset()
-            with contextlib.redirect_stdout(io.StringIO()):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                runs[where] = reg.register()
-                torch.cuda.synchronize()
-                secs = time.perf_counter() - t0
-            res[f"{n}_{where}_s"] = secs
+            buf = io.StringIO()
+            if profile:
+                os.environ["MICROALIGNER_TPU_PROFILE"] = "1"
+            try:
+                with contextlib.redirect_stdout(buf):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    runs[where] = reg.register()
+                    torch.cuda.synchronize()
+                    secs = time.perf_counter() - t0
+            finally:
+                os.environ.pop("MICROALIGNER_TPU_PROFILE", None)
+            res[f"{key}_{where}_s"] = secs
             if where == "cuda":
-                res[f"{n}_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
-                res[f"launches_{n}"] = counters.read(f"feature_{n}", ("K1",))
+                res[f"{key}_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+                launches.append(counters.read(f"feature_{key}", ("K1",)))
+            if profile:
+                stages = {}
+                for name, t in re.findall(r"^\[profile\] (.+): ([0-9.]+)s$", buf.getvalue(), re.M):
+                    stages[name] = round(stages.get(name, 0.0) + float(t), 4)
+                res[f"{key}_stages_s"] = stages
+                log(f"[feature] {key} stage timers (summed over the iterations): {stages}")
         err_truth = corner_err(runs["cuda"], truth, (n, n))
-        res[f"{n}_tmat"] = runs["cuda"].tolist()
-        res[f"{n}_truth_err_px"] = err_truth
-        line = (f"[feature] {n}^2 FeatureRegistrator on the card {res[f'{n}_cuda_s']:.2f} s, peak device memory "
-                f"{res[f'{n}_peak_gib']:.2f} GiB; corners vs truth {err_truth:.4f} px")
+        res[f"{key}_tmat"] = runs["cuda"].tolist()
+        res[f"{key}_truth_err_px"] = err_truth
+        line = (f"[feature] {key}: FeatureRegistrator on the card {res[f'{key}_cuda_s']:.2f} s, peak device "
+                f"memory {res[f'{key}_peak_gib']:.2f} GiB; corners vs truth {err_truth:.4f} px")
         if "cpu" in runs:
-            res[f"{n}_card_vs_cpu_px"] = corner_err(runs["cuda"], runs["cpu"], (n, n))
-            line += f"; CPU run {res[f'{n}_cpu_s']:.2f} s, card vs CPU {res[f'{n}_card_vs_cpu_px']:.2e} px"
+            res[f"{key}_card_vs_cpu_px"] = corner_err(runs["cuda"], runs["cpu"], (n, n))
+            line += f"; CPU run {res[f'{key}_cpu_s']:.2f} s, card vs CPU {res[f'{key}_card_vs_cpu_px']:.2e} px"
         log(line)
-        require(err_truth < 0.5, f"feature {n}: {err_truth} px from the truth")
+        require(err_truth < 0.5, f"feature {key}: {err_truth} px from the truth")
         if "cpu" in runs:
-            require(res[f"{n}_card_vs_cpu_px"] < 1e-3, f"feature {n}: card vs CPU {res[f'{n}_card_vs_cpu_px']} px")
+            require(res[f"{key}_card_vs_cpu_px"] < 1e-3, f"feature {key}: card vs CPU {res[f'{key}_card_vs_cpu_px']} px")
         del ref, mov
-    res["launches"] = {k: sum(res[f"launches_{n}"][k] for n in sizes) for k in res[f"launches_{sizes[0]}"]}
+    res["launches"] = {k: sum(run[k] for run in launches) for k in launches[0]}
     return res
 
 

@@ -14,10 +14,9 @@ from pathlib import Path
 from pprint import pprint
 from typing import Optional, Sequence
 
-import torch
-
 from microaligner_tpu_torch.pipeline.config import PipelineConfigReader
 from microaligner_tpu_torch.pipeline.runner import run_pipeline
+from microaligner_tpu_torch.utils.device import resolve_device
 
 
 def parse_cmd_args(argv: Optional[Sequence[str]] = None) -> Path:
@@ -30,12 +29,7 @@ def parse_cmd_args(argv: Optional[Sequence[str]] = None) -> Path:
 
 
 def main(argv: Optional[Sequence[str]] = None, device="cuda"):
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "microaligner_tpu_torch: no CUDA device (torch.cuda.is_available() is False); "
-            "this CLI runs on an NVIDIA GPU and does not fall back to the CPU"
-        )
+    device = resolve_device(device)
     print("Started\n")
     config_path = parse_cmd_args(argv)
     config = PipelineConfigReader().read_config(config_path)

@@ -8,10 +8,8 @@ points, 8 orientation bins, bilinear interpolation, no keypoint orientation)
 Pipeline: a slight pre-smooth, x/y gradients, 8 rectified orientation
 layers, incrementally smoothed cubes (one sigma a ring), then bilinear
 gathers at the 25 grid points around each keypoint.  The ring blurs are
-operator products accumulated in float64 (``ops/filters.py::gaussian_blur_mxu``)
-and the norms are taken in float64, so the CPU and the card give the same
-descriptors to float32 rounding; the JAX package's bf16 operands are
-TPU-only.
+float32 operator products with TF32 off (``ops/filters.py::gaussian_blur_mxu``);
+the JAX package's bf16 operands are TPU-only.
 """
 
 from __future__ import annotations
@@ -152,10 +150,8 @@ def _gather_descriptors(cubes: torch.Tensor, coords: torch.Tensor) -> torch.Tens
 
 
 def normalize_descriptors(desc: torch.Tensor) -> torch.Tensor:
-    """Unit L2 norm per row (rows of norm below 1e-8 are divided by 1e-8),
-    in float64, rounded to float32."""
-    d = desc.to(torch.float64)
-    return (d / torch.clamp_min(torch.linalg.vector_norm(d, dim=-1, keepdim=True), 1e-8)).to(desc.dtype)
+    """Unit L2 norm per row (rows of norm below 1e-8 are divided by 1e-8)."""
+    return desc / torch.clamp_min(torch.linalg.vector_norm(desc, dim=-1, keepdim=True), 1e-8)
 
 
 def daisy_at_points(img: torch.Tensor, coords: torch.Tensor, normalize: bool = True) -> torch.Tensor:

@@ -3,64 +3,84 @@
 PyTorch counterpart of ``microaligner_tpu/features/match.py``, which
 replaces ``cv.FlannBasedMatcher.knnMatch(des_mov, des_ref, k=2)`` and the
 0.5 ratio test with an exact top-2 over squared distances
-|q|^2 + |t|^2 - 2 q.t.  The distances are taken in float64 (the JAX
-package's are float32, bf16 cross terms on a TPU): a float32 product sums
-in an order that differs between the CPU's BLAS and cuBLAS, and near-ties
-of the nearest index or of the ratio test would then fall differently on
-the card and on the CPU.  FLANN reports unsquared distances, so the ratio
-0.5 compares ``d1 < 0.25 * d2`` on the squared ones; ``d1`` and ``d2`` are
-returned in float32.
+|q|^2 + |t|^2 - 2 q.t, in float32 with TF32 off (the JAX package's bf16
+cross term is TPU-only).  FLANN reports unsquared distances, so the ratio
+0.5 compares ``d1 < 0.25 * d2`` on the squared ones.
+
+The CPU's BLAS and cuBLAS sum the float32 cross term in different orders,
+so a query whose ratio test lies within float32 rounding of its threshold
+could pass on one device and fail on the other.  :func:`match_descriptors`
+decides those near-ties again with float64 distances over every train row:
+the ``TIE_ROWS`` queries closest to their threshold, of which those within
+the rounding bound take the float64 decision and nearest index, with no
+host round trip.  The nearest index of a match that passes is never a
+near-tie: it beats the runner-up by more than 3/4 of d2.
 """
 
 from __future__ import annotations
 
 import torch
 
+from microaligner_tpu_torch.ops.filters import ieee_float32
+
 __all__ = ["knn_top2", "match_descriptors"]
 
 _BIG = 3.4e38
-_CHUNK_ELEMS = 1 << 27  # distance entries per query chunk (1 GiB of float64)
+_CHUNK_ELEMS = 1 << 27  # distance entries per query chunk
+TIE_ROWS = 256  # queries per call whose ratio test may be decided again in float64
+# bound on float32's error in d1 - ratio^2 * d2, relative to |q|^2 + max |t|^2
+# (two 200-term sums of products, each within 200 * 2^-24 of exact)
+_TIE_TOL = 2.0**-14
 
 
-def _knn_top2_f64(query, train, t_valid, chunk: int):
-    """:func:`knn_top2` with float64 distances."""
-    q64 = query.to(torch.float64)
-    t64 = train.to(torch.float64)
-    qn = torch.sum(q64 * q64, dim=1)
-    tn = torch.sum(t64 * t64, dim=1)
-    tmask = torch.where(t_valid, 0.0, _BIG).to(torch.float64)
+def _top2(query: torch.Tensor, train: torch.Tensor, t_valid: torch.Tensor, chunk: int):
+    """``(d1, d2, idx1, |q|^2, |t|^2)`` in the inputs' dtype, ``chunk``
+    query rows at a time, fewer when a chunk would pass 2**27 entries."""
+    qn = torch.sum(query * query, dim=1)
+    tn = torch.sum(train * train, dim=1)
+    tmask = torch.where(t_valid, 0.0, _BIG).to(query.dtype)
     step = max(1, min(chunk, _CHUNK_ELEMS // max(1, train.shape[0])))
     d1s, d2s, i1s = [], [], []
-    for s in range(0, query.shape[0], step):
-        cross = torch.matmul(q64[s : s + step], t64.T)
-        d = qn[s : s + step, None] + tn[None, :] - 2.0 * cross + tmask[None, :]
-        del cross
-        d.clamp_min_(0.0)
-        d1, i1 = torch.min(d, dim=1)
-        d.scatter_(1, i1[:, None], _BIG)  # the nearest out: the runner-up is the min
-        d1s.append(d1)
-        d2s.append(torch.amin(d, dim=1))
-        i1s.append(i1)
-        del d
-    return torch.cat(d1s), torch.cat(d2s), torch.cat(i1s)
+    with ieee_float32():
+        for s in range(0, query.shape[0], step):
+            cross = torch.matmul(query[s : s + step], train.T)
+            d = qn[s : s + step, None] + tn[None, :] - 2.0 * cross + tmask[None, :]
+            del cross
+            d.clamp_min_(0.0)
+            d1, i1 = torch.min(d, dim=1)
+            d.scatter_(1, i1[:, None], _BIG)  # the nearest out: the runner-up is the min
+            d1s.append(d1)
+            d2s.append(torch.amin(d, dim=1))
+            i1s.append(i1)
+            del d
+    return torch.cat(d1s), torch.cat(d2s), torch.cat(i1s), qn, tn
 
 
 def knn_top2(query: torch.Tensor, train: torch.Tensor, q_valid: torch.Tensor,
              t_valid: torch.Tensor, chunk: int = 4096):
     """For each query row: the two smallest squared L2 distances over the
-    valid train rows and the index of the nearest.  Returns ``(d1, d2,
-    idx1)``, each (Q,), the distances in float32.  Queries go ``chunk`` rows
-    at a time, fewer when a chunk's distance matrix would pass 2**27
-    entries."""
-    d1, d2, i1 = _knn_top2_f64(query, train, t_valid, chunk)
-    return d1.to(torch.float32), d2.to(torch.float32), i1
+    valid train rows and the index of the nearest, in float32.  Returns
+    ``(d1, d2, idx1)``, each (Q,)."""
+    d1, d2, i1, _, _ = _top2(query.to(torch.float32), train.to(torch.float32), t_valid, chunk)
+    return d1, d2, i1
 
 
 def match_descriptors(des_ref: torch.Tensor, des_mov: torch.Tensor, ref_valid: torch.Tensor,
                       mov_valid: torch.Tensor, ratio: float = 0.5):
     """Ratio-filtered matches mov -> ref (query = mov, train = ref): keep
-    ``d1 < ratio * d2`` on unsquared distances.  Returns ``(good (Q,) bool,
-    ref_idx (Q,) int64)`` aligned with the mov rows."""
-    d1, d2, i1 = _knn_top2_f64(des_mov, des_ref, ref_valid, 4096)
-    good = (d1 < (ratio * ratio) * d2) & mov_valid  # on the float64 distances
+    ``d1 < ratio * d2`` on unsquared distances, near-ties decided in
+    float64.  Returns ``(good (Q,) bool, ref_idx (Q,) int64)`` aligned with
+    the mov rows."""
+    r2 = ratio * ratio
+    query, train = des_mov.to(torch.float32), des_ref.to(torch.float32)
+    d1, d2, i1, qn, tn = _top2(query, train, ref_valid, 4096)
+    good = (d1 < r2 * d2) & mov_valid
+    tn_max = torch.amax(torch.where(ref_valid, tn, 0.0))
+    margin = torch.abs(d1 - r2 * d2) / (qn + tn_max).clamp_min(1e-30)
+    sel = torch.topk(torch.where(mov_valid, margin, _BIG), min(TIE_ROWS, query.shape[0]),
+                     largest=False).indices
+    e1, e2, ei, _, _ = _top2(query[sel].double(), train.double(), ref_valid, 4096)
+    near = margin[sel] <= _TIE_TOL
+    good[sel] = torch.where(near, (e1 < r2 * e2) & mov_valid[sel], good[sel])
+    i1[sel] = torch.where(near, ei, i1[sel])
     return good, i1

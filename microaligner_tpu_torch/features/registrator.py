@@ -40,6 +40,7 @@ from microaligner_tpu_torch.ops.filters import dog_traced, pyr_down, round_to_dt
 from microaligner_tpu_torch.ops.mutual_info import mi_tiled_traced
 from microaligner_tpu_torch.ops.warp import affine_warp
 from microaligner_tpu_torch.tiles import TileGrid
+from microaligner_tpu_torch.utils.device import resolve_device
 from microaligner_tpu_torch.utils.img_checks import (
     check_img_dims_match,
     check_img_is_2d_grey,
@@ -78,12 +79,15 @@ def _valid_transform_traced(est3: torch.Tensor, img_shape) -> torch.Tensor:
 
 
 def _level_align_body(ref_img, ref_feats: Features, mov_img, grid: TileGrid, k: int,
-                      tile_size: int, num_iterations: int, use_dog: bool):
+                      tile_size: int, num_iterations: int, use_dog: bool, label: str = "feature"):
     """One pyramid level's whole iterative alignment on the device.
 
     Returns (composed 2x3 float32, aligned image, diagnostics
     (num_iterations, 5) rows [n_good, n_total, mi_after, mi_before,
-    accepted])."""
+    accepted]).  Under ``MICROALIGNER_TPU_PROFILE`` each round's four
+    steps are timed as ``{label} find`` (DoG, FAST, DAISY), ``match`` (knn
+    and the ratio test), ``ransac`` and ``gate`` (the candidate warp, both
+    NMI scores and the realign)."""
     dev = mov_img.device
     eye3 = torch.eye(3, dtype=torch.float32, device=dev)
     dtype = mov_img.dtype
@@ -91,25 +95,29 @@ def _level_align_body(ref_img, ref_feats: Features, mov_img, grid: TileGrid, k: 
     composed, aligned = eye3, mov_img
     rows = []
     for _ in range(num_iterations):
-        coords, desc, valid, _resp = find_features_tiled(dog_traced(aligned, use_dog), grid, k)
-        good, ref_idx = match_descriptors(ref_feats.descriptors, desc, ref_feats.valid, valid)
-        dst = ref_feats.coords[ref_idx]
-        n_good = torch.sum(good)
-        params, _count = _ransac_core(coords, dst, good, 0)
-        a, b, tx, ty = params[0], params[1], params[2], params[3]
-        zero, one = torch.zeros_like(a), torch.ones_like(a)
-        est = torch.stack([torch.stack([a, -b, tx]), torch.stack([b, a, ty]),
-                           torch.stack([zero, zero, one])])
-        est = torch.where(n_good >= 3, est, eye3)
-        # the candidate warps the CURRENT aligned image; an accepted round
-        # realigns from the ORIGINAL mov with the composed matrix
-        cand = round_to_dtype(affine_warp_traced(aligned, est[:2]), dtype)
-        after = mi_tiled_traced(ref_gate_dog, dog_traced(cand, True), tile_size)
-        before = mi_tiled_traced(ref_gate_dog, dog_traced(aligned, True), tile_size)
-        accept = (after > before) & _valid_transform_traced(est, tuple(mov_img.shape))
-        composed = torch.where(accept, _mm3(composed, est), composed)
-        realigned = round_to_dtype(affine_warp_traced(mov_img, composed[:2]), dtype)
-        aligned = torch.where(accept, realigned, aligned)
+        with stage_timer(f"{label} find", dev):
+            coords, desc, valid, _resp = find_features_tiled(dog_traced(aligned, use_dog), grid, k)
+        with stage_timer(f"{label} match", dev):
+            good, ref_idx = match_descriptors(ref_feats.descriptors, desc, ref_feats.valid, valid)
+        with stage_timer(f"{label} ransac", dev):
+            dst = ref_feats.coords[ref_idx]
+            n_good = torch.sum(good)
+            params, _count = _ransac_core(coords, dst, good, 0)
+        with stage_timer(f"{label} gate", dev):
+            a, b, tx, ty = params[0], params[1], params[2], params[3]
+            zero, one = torch.zeros_like(a), torch.ones_like(a)
+            est = torch.stack([torch.stack([a, -b, tx]), torch.stack([b, a, ty]),
+                               torch.stack([zero, zero, one])])
+            est = torch.where(n_good >= 3, est, eye3)
+            # the candidate warps the CURRENT aligned image; an accepted round
+            # realigns from the ORIGINAL mov with the composed matrix
+            cand = round_to_dtype(affine_warp_traced(aligned, est[:2]), dtype)
+            after = mi_tiled_traced(ref_gate_dog, dog_traced(cand, True), tile_size)
+            before = mi_tiled_traced(ref_gate_dog, dog_traced(aligned, True), tile_size)
+            accept = (after > before) & _valid_transform_traced(est, tuple(mov_img.shape))
+            composed = torch.where(accept, _mm3(composed, est), composed)
+            realigned = round_to_dtype(affine_warp_traced(mov_img, composed[:2]), dtype)
+            aligned = torch.where(accept, realigned, aligned)
         rows.append(torch.stack([n_good.to(torch.float64), valid.sum().to(torch.float64),
                                  after.to(torch.float64), before.to(torch.float64),
                                  accept.to(torch.float64)]))
@@ -171,7 +179,8 @@ def _register_fused(ref_pyr, ref_feats, mov_img: torch.Tensor, factors, tile_siz
                 mov_lvl = round_to_dtype(affine_warp_traced(mov_lvl, acc[:2]), mov_lvl.dtype)
             grid, k = _level_grid(mov_lvl.shape, tile_size)
             tmat2, _aligned, diag = _level_align_body(
-                ref_pyr[i], ref_feats[i], mov_lvl, grid, k, tile_size, num_iterations, use_dog)
+                ref_pyr[i], ref_feats[i], mov_lvl, grid, k, tile_size, num_iterations, use_dog,
+                f"feature lvl{factor}")
         hom = torch.cat([tmat2, torch.tensor([[0.0, 0.0, 1.0]], device=dev)], dim=0)
         fullscale.append(hom * _tscale(float(factor), dev))
         diags.append(diag)
@@ -183,9 +192,10 @@ def _register_fused(ref_pyr, ref_feats, mov_img: torch.Tensor, factors, tile_siz
 
 class FeatureRegistrator:
     """Property-style API of the JAX package's ``FeatureRegistrator``;
-    ``device`` is where it runs (numpy inputs are copied there)."""
+    ``device`` is where it runs (numpy inputs are copied there): the first
+    CUDA device unless another is named, raising when there is no card."""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device=None):
         self._ref_img = np.array([])
         self._mov_img = np.array([])
         self.num_pyr_lvl = 3
@@ -193,7 +203,7 @@ class FeatureRegistrator:
         self.tile_size = 1000
         self.use_full_res_img = False
         self.use_dog = True
-        self.device = device
+        self.device = resolve_device(device)
         self._ref_pyr_features: List[Features] = []
         self._ref_img_pyr: List[torch.Tensor] = []
         self._factors = [8, 4, 2]

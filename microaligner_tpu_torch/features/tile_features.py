@@ -36,6 +36,7 @@ from microaligner_tpu_torch.features.match import match_descriptors
 from microaligner_tpu_torch.features.ransac import estimate_affine_partial_2d
 from microaligner_tpu_torch.ops.pad import zero_pad
 from microaligner_tpu_torch.tiles import TileGrid
+from microaligner_tpu_torch.utils.device import resolve_device
 from microaligner_tpu_torch.utils.logging import log
 
 __all__ = ["Features", "find_features", "register_img_pair", "match_features"]
@@ -146,10 +147,11 @@ def find_features_tiled(img: torch.Tensor, grid: TileGrid, k: int, normalize: bo
 def find_features(img, tile_size: int, device=None) -> Features:
     """Global feature set of a 2-D image (reference tile_registration.py:78-92).
     A constant image has no FAST corners, so its set comes back all invalid
-    without a host check.  Numpy input goes to ``device`` (default CPU)."""
-    img = torch.as_tensor(img)
-    if device is not None:
-        img = img.to(device)
+    without a host check.  It runs on ``device``; by default a tensor stays
+    where it is and a numpy array goes to the first CUDA device (raising
+    when there is no card)."""
+    if device is not None or not isinstance(img, torch.Tensor):
+        img = torch.as_tensor(img).to(resolve_device(device))
     grid = TileGrid.for_image(tuple(img.shape), tile_size, HALO)
     return Features(*find_features_tiled(img, grid, features_per_tile(grid)))
 

@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 import torch
@@ -68,6 +69,11 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _check_nvcc(cmd: list, rc: int, output: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{output}")
+
+
 def build(verbose: bool = False) -> tuple[Path, str]:
     """Compile ``csrc/*.cu`` into one library unless it is already built.
 
@@ -86,36 +92,21 @@ def build(verbose: bool = False) -> tuple[Path, str]:
         return lib_path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
-    objs, procs = [], []
-    for src in sorted(CSRC.glob("*.cu")):
-        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
-        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-c", "-o", str(obj), str(src)]
-        objs.append(obj)
-        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-    link = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o", str(tmp), *map(str, objs)]
-    try:
-        output = []
-        for cmd, proc in procs:
-            out = proc.communicate()[0]
-            output.append(out)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
-        proc = subprocess.run(link, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half a file
-    finally:
-        for _, proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        tmp.unlink(missing_ok=True)
-        for obj in objs:
-            obj.unlink(missing_ok=True)
-    return lib_path, "".join(output)
+    flags = [*NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else [])]
+    srcs = sorted(CSRC.glob("*.cu"))
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [f"{tmp}/{src.stem}.o" for src in srcs]
+        cmds = [[nvcc, *flags, "-c", "-o", obj, str(src)] for obj, src in zip(objs, srcs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        outputs = [proc.communicate()[0] for proc in procs]  # waits for every process
+        for cmd, proc, out in zip(cmds, procs, outputs):
+            _check_nvcc(cmd, proc.returncode, out)
+        link = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", f"{tmp}/lib.so", *objs]
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        _check_nvcc(link, proc.returncode, proc.stdout)
+        os.replace(f"{tmp}/lib.so", lib_path)  # atomic: a concurrent build never sees half a file
+    return lib_path, "".join(outputs)
 
 
 def library() -> ctypes.CDLL:

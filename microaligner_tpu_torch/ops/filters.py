@@ -14,14 +14,14 @@ DAISY's long blurs (ksize 29..63) are products with blur operators instead
 and one shared Toeplitz band over 512-row blocks for long ones, with the
 REFLECT_101 fold inside the operators.  The JAX package leaves these to XLA
 outside any Pallas kernel (bf16 operands on a TPU, float32 elsewhere).
-Here the products accumulate in float64 and round once to float32: a
-float32 product sums in an order that differs between the CPU's BLAS and
-cuBLAS, and those last bits flip the matcher's decisions downstream, so a
-CPU run and a card run would register to different matrices.
+Here they are float32 products with TF32 off (:func:`ieee_float32`); the
+CPU's BLAS and cuBLAS sum them in different orders, so the two devices'
+blurs differ in their last bits.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -31,6 +31,7 @@ __all__ = [
     "gaussian_kernel",
     "gaussian_blur",
     "gaussian_blur_mxu",
+    "ieee_float32",
     "sep_filter2d",
     "dog",
     "dog_traced",
@@ -97,9 +98,21 @@ def _toeplitz_band(block: int, ksize: int, sigma: float) -> np.ndarray:
     return T.astype(np.float32)
 
 
+@contextlib.contextmanager
+def ieee_float32():
+    """Float32 matrix products in the block run in full float32: no TF32
+    on the card, whatever the caller's setting."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
 def _operator(table: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    """A float32 table as a float64 tensor on ``like``'s device."""
-    return torch.from_numpy(table).to(like.device, torch.float64)
+    """A float32 table as a tensor on ``like``'s device."""
+    return torch.from_numpy(table).to(like.device)
 
 
 def _blur_axis_banded(x: torch.Tensor, axis: int, ksize: int, sigma: float) -> torch.Tensor:
@@ -131,20 +144,21 @@ def _blur_axis_banded(x: torch.Tensor, axis: int, ksize: int, sigma: float) -> t
 def gaussian_blur_mxu(x: torch.Tensor, ksize: int, sigma: float) -> torch.Tensor:
     """Gaussian blur of a (..., H, W) float32 stack along the last two axes
     as blur-operator products (REFLECT_101, same size): the JAX package's
-    ``gaussian_blur_mxu`` with its float32 operators, accumulated in
-    float64 and rounded to float32 at the end.  Axes longer than
-    ``BANDED_BLOCK + ksize - 1`` take the banded operator."""
+    ``gaussian_blur_mxu`` with its float32 operators, in float32 with TF32
+    off.  Axes longer than ``BANDED_BLOCK + ksize - 1`` take the banded
+    operator."""
     h, w = x.shape[-2], x.shape[-1]
-    y = x.to(torch.float64)
-    if h > BANDED_BLOCK + ksize - 1:
-        y = _blur_axis_banded(y, -2, ksize, sigma)
-    else:
-        y = torch.matmul(_operator(_blur_operator(h, ksize, float(sigma)), y), y)
-    if w > BANDED_BLOCK + ksize - 1:
-        y = _blur_axis_banded(y, -1, ksize, sigma)
-    else:
-        y = torch.matmul(y, _operator(_blur_operator(w, ksize, float(sigma)), y).T)
-    return y.to(x.dtype)
+    y = x.to(torch.float32)
+    with ieee_float32():
+        if h > BANDED_BLOCK + ksize - 1:
+            y = _blur_axis_banded(y, -2, ksize, sigma)
+        else:
+            y = torch.matmul(_operator(_blur_operator(h, ksize, float(sigma)), y), y)
+        if w > BANDED_BLOCK + ksize - 1:
+            y = _blur_axis_banded(y, -1, ksize, sigma)
+        else:
+            y = torch.matmul(y, _operator(_blur_operator(w, ksize, float(sigma)), y).T)
+    return y
 
 
 def _taps(kernel) -> list[float]:

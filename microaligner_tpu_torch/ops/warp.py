@@ -32,6 +32,7 @@ from microaligner_tpu_torch.ops.kernel_sample import (
     sample_displaced,
     sample_displaced_multi,
 )
+from microaligner_tpu_torch.utils.device import resolve_device
 
 __all__ = [
     "bilinear_remap",
@@ -151,10 +152,10 @@ def inverse_of(t_mat) -> np.ndarray:
 def affine_warp(img, t_mat, dsize: tuple[int, int] | None = None, device=None) -> torch.Tensor:
     """``cv.warpAffine(img, t_mat, dsize)``: ``t_mat`` maps src coords to dst
     coords; ``dsize`` is (H, W), by default the input's.  Float32 output on
-    ``device`` (by default the device of ``img``; numpy goes to the CPU)."""
-    img = torch.as_tensor(img)
-    if device is not None:
-        img = img.to(device)
+    ``device``; by default a tensor stays where it is and a numpy array goes
+    to the first CUDA device (raising when there is no card)."""
+    if device is not None or not isinstance(img, torch.Tensor):
+        img = torch.as_tensor(img).to(resolve_device(device))
     out_h, out_w = dsize if dsize is not None else img.shape[:2]
     return affine_warp_bands(img, inverse_of(t_mat), int(out_h), int(out_w))
 
@@ -164,14 +165,16 @@ def transform_img_with_tmat(img, target_shape, transform_matrix, device=None) ->
     keeping the dtype (reference shared_modules/utils.py:98-114): an
     identity matrix skips the warp; otherwise the bilinear output is cast
     with numpy's truncating ``astype``, as the reference casts after its
-    skimage warp.  The warp runs on ``device`` (default CPU)."""
+    skimage warp.  The warp runs on ``device``: the first CUDA device unless
+    another is named, raising when there is no card."""
     from microaligner_tpu_torch.ops.pad import pad_to_shape
 
+    device = resolve_device(device)
     original_dtype = np.asarray(img).dtype
     img, _ = pad_to_shape(np.asarray(img), tuple(target_shape))
     tm = np.asarray(transform_matrix, np.float64)
     if np.array_equal(tm, np.array([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]])):
         return np.asarray(img).astype(original_dtype)
     src = torch.from_numpy(np.ascontiguousarray(img).astype(np.float32))
-    out = affine_warp(src, tm, device=device or "cpu").cpu().numpy()
+    out = affine_warp(src, tm, device=device).cpu().numpy()
     return out.astype(original_dtype)

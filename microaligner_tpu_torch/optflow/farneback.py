@@ -168,24 +168,10 @@ def _poly_pair_m(movs: torch.Tensor, refs: torch.Tensor, n: int, sigma: float):
     return r0, r1, zero_flow_matrices(r0, r1)
 
 
-def _poly_exp_batched_pallas(imgs: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
-    """(N, H, W) -> (N, 5, H, W): pre-smooth, one replicated pixel of pad,
-    then K6 (``poly_n`` must be 1)."""
-    sp = _pad_replicate1(_pre_smooth(imgs))
-    return poly_exp5(sp, _poly_coeff_tuple(n, sigma))
-
-
-def _poly_exp_batched(imgs: torch.Tensor, n: int, sigma: float) -> torch.Tensor:
-    """Batched pre-smooth + polynomial expansion, (N, H, W) -> (N, 5, H, W):
-    K6 for ``n == 1`` under the switch, the plain expansion otherwise."""
-    if n == 1 and _unpaired_route():
-        return _poly_exp_batched_pallas(imgs, n, sigma)
-    return _poly_exp_cf(_pre_smooth(imgs), n, sigma)
-
-
-def _unpaired_route() -> bool:
-    """``MICROALIGNER_TPU_PALLAS_POLY=1``, read anew on every call."""
-    return os.environ.get(PALLAS_POLY_ENV) == "1"
+def _poly_exp_batched(imgs: torch.Tensor, sigma: float) -> torch.Tensor:
+    """(N, H, W) -> (N, 5, H, W) for ``poly_n == 1``: pre-smooth, one
+    replicated pixel of pad, then K6."""
+    return poly_exp5(_pad_replicate1(_pre_smooth(imgs)), _poly_coeff_tuple(1, sigma))
 
 
 def _farneback_core_parts(
@@ -199,9 +185,9 @@ def _farneback_core_parts(
     """Batched (N, H, W) Farneback -> (fx, fy), each (N, H, W) float32."""
     if num_iter < 1:
         raise ValueError(f"farneback requires num_iter >= 1, got {num_iter}")
-    if poly_n == 1 and _unpaired_route():
-        r0 = _poly_exp_batched(movs, poly_n, poly_sigma)
-        r1 = _poly_exp_batched(refs, poly_n, poly_sigma)
+    if poly_n == 1 and os.environ.get(PALLAS_POLY_ENV) == "1":  # read on every call
+        r0 = _poly_exp_batched(movs, poly_sigma)
+        r1 = _poly_exp_batched(refs, poly_sigma)
         m = zero_flow_matrices(r0, r1)
     else:
         r0, r1, m = _poly_pair_m(movs, refs, poly_n, poly_sigma)

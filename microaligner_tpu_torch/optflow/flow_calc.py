@@ -24,6 +24,7 @@ from microaligner_tpu_torch.ops.warp import warp_with_flow_parts_batched
 from microaligner_tpu_torch.optflow.farneback import _farneback_core_parts, farneback
 from microaligner_tpu_torch.parallel import tile_map
 from microaligner_tpu_torch.tiles import TileGrid
+from microaligner_tpu_torch.utils.device import resolve_device
 
 __all__ = [
     "TileFlowCalc",
@@ -111,9 +112,10 @@ def calc_flow_and_warp_dense_banded(ref_img, mov_img, warp_src, grid: TileGrid,
 
 class TileFlowCalc:
     """Property-style API of the JAX package's ``TileFlowCalc``; ``device``
-    is where the flow is computed."""
+    is where the flow is computed, the first CUDA device unless another is
+    named."""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device=None):
         self.ref_img = np.array([])
         self.mov_img = np.array([])
         self.num_iter = 1
@@ -121,7 +123,7 @@ class TileFlowCalc:
         self.tile_size = 1000
         self.overlap = 100
         self.band_rows: Optional[int] = None
-        self.device = device
+        self.device = resolve_device(device)
 
     def calc_flow(self) -> np.ndarray:
         ref = torch.as_tensor(self.ref_img).to(self.device)

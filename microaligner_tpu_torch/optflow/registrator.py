@@ -35,6 +35,7 @@ from microaligner_tpu_torch.optflow.warper import (
     warp_tiled_dtype,
 )
 from microaligner_tpu_torch.tiles import TileGrid
+from microaligner_tpu_torch.utils.device import resolve_device
 from microaligner_tpu_torch.utils.img_checks import (
     check_img_dims_match,
     check_img_is_2d_grey,
@@ -170,11 +171,13 @@ class OptFlowRegistrator:
     """Property-style API of the JAX package's ``OptFlowRegistrator``.
 
     ``device`` is where the registration runs; numpy inputs are copied
-    there.  ``band_rows`` overrides the interior rows per band (the JAX
-    package's ``MICROALIGNER_TPU_FLOW_BAND_ROWS``).
+    there.  It is the first CUDA device unless another is named, and the
+    constructor raises when there is no card.  ``band_rows`` overrides the
+    interior rows per band (the JAX package's
+    ``MICROALIGNER_TPU_FLOW_BAND_ROWS``).
     """
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device=None):
         self._ref_img = np.array([])
         self._mov_img = np.array([])
         self.num_pyr_lvl = 4
@@ -185,7 +188,7 @@ class OptFlowRegistrator:
         self.use_dog = False
         self.replicate_reject_upscale_bug = False
         self.band_rows: Optional[int] = None
-        self.device = device
+        self.device = resolve_device(device)
         self.last_scores: List[Tuple[int, float, float]] = []
 
     @property

@@ -24,6 +24,7 @@ from microaligner_tpu_torch.ops.warp import (
 from microaligner_tpu_torch.optflow.flow_calc import band_rows_for, band_slab
 from microaligner_tpu_torch.parallel import tile_map
 from microaligner_tpu_torch.tiles import TileGrid, pad_canvas, stitch_interiors, tile_origins
+from microaligner_tpu_torch.utils.device import resolve_device
 
 __all__ = [
     "Warper",
@@ -165,19 +166,19 @@ def _missing(x) -> bool:
 class Warper:
     """Property-style API of the JAX package's ``Warper``.
 
-    >>> w = Warper(device="cuda")
+    >>> w = Warper()       # the first CUDA device; Warper(device="cpu") asks for the CPU
     >>> w.image = img      # (H, W) numpy array or tensor
     >>> w.flow = flow      # (H, W, 2)
     >>> out = w.warp()     # numpy, the image's dtype
     """
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device=None):
         self.image = np.array([])
         self.flow = np.array([])
         self.tile_size = 1000
         self.overlap = 100
         self.band_rows: Optional[int] = None
-        self.device = device
+        self.device = resolve_device(device)
 
     def warp(self) -> np.ndarray:
         """Warp ``image`` by ``flow``; returns a numpy array of the image's

@@ -19,6 +19,7 @@ import torch
 from microaligner_tpu.features import FeatureRegistrator as JReg
 from microaligner_tpu_torch.features import FeatureRegistrator as TReg
 from microaligner_tpu_torch.features import registrator as treg
+from microaligner_tpu_torch.features import tile_features as ttf
 
 torch.set_num_threads(1)
 
@@ -68,7 +69,7 @@ def case(request):
 
 def test_registrator_matches_jax_and_truth(case, capsys):
     ref, mov, levels, iters, want, truth = case
-    reg = _configure(TReg(), ref, mov, levels, iters)
+    reg = _configure(TReg(device="cpu"), ref, mov, levels, iters)
     got = reg.register()
     pts = _corners(ref.shape)
     assert np.abs(got @ pts - want @ pts).max() < 0.1
@@ -86,7 +87,7 @@ def test_registrator_matches_jax_and_truth(case, capsys):
 def test_pyramid_factors_and_gates_match_jax():
     img = np.full((420, 900), 7, np.uint8)
     for levels, full in ((3, False), (2, True), (5, False)):
-        t, j = TReg(), JReg()
+        t, j = TReg(device="cpu"), JReg()
         for reg in (t, j):
             reg.num_pyr_lvl, reg.use_full_res_img = levels, full
             reg.ref_img = img
@@ -102,8 +103,38 @@ def test_pyramid_factors_and_gates_match_jax():
 
 def test_too_small_for_pyramid_raises():
     img = np.full((150, 150), 128, np.uint8)
-    reg = TReg()
+    reg = TReg(device="cpu")
     reg.num_pyr_lvl, reg.use_full_res_img = 2, False
     reg.ref_img = reg.mov_img = img
     with pytest.raises(ValueError, match="too small for any pyramid"):
         reg.register()
+
+
+def _entry_point(name):
+    import microaligner_tpu_torch as port
+    from microaligner_tpu_torch.optflow.flow_calc import TileFlowCalc
+
+    img = np.zeros((20, 20), np.uint8)
+    calls = {
+        "FeatureRegistrator": lambda: port.FeatureRegistrator().device,
+        "OptFlowRegistrator": lambda: port.OptFlowRegistrator().device,
+        "Warper": lambda: port.Warper().device,
+        "TileFlowCalc": lambda: TileFlowCalc().device,
+        "transform_img_with_tmat": lambda: port.transform_img_with_tmat(
+            img, (24, 24), np.array([[1.0, 0.0, 2.0], [0.0, 1.0, 0.0]])),
+        "find_features": lambda: ttf.find_features(img, 1000),
+    }
+    return calls[name]
+
+
+@pytest.mark.parametrize("name", ["FeatureRegistrator", "OptFlowRegistrator", "Warper", "TileFlowCalc",
+                                  "transform_img_with_tmat", "find_features"])
+def test_entry_points_default_to_the_card(name):
+    """With no device named, an entry point runs on the first CUDA device;
+    without a card it raises instead of running on the CPU."""
+    call = _entry_point(name)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match=r"torch.cuda.is_available\(\) is False"):
+            call()
+    elif name not in ("transform_img_with_tmat", "find_features"):
+        assert call().type == "cuda"

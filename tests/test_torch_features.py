@@ -6,13 +6,13 @@ tests/test_features.py and tests/test_daisy_golden.py.
 Bars and their reasons:
 * FAST score maps, top-k indices, responses and validity: bit-exact against
   JAX and against cv2.  All integer arithmetic; the top-k key is tie-free.
-* DAISY descriptors: rtol 1e-4, atol 1e-5 against JAX.  The port's ring
-  blurs accumulate in float64, the JAX package's in float32, and XLA
-  contracts the bilinear blend into FMAs.  The numpy golden keeps its own
-  2e-4 relative bar.
-* Blur operators: 1e-5 on unit-range data (float64 against float32 sums).
-* knn: the same nearest index; d1 and d2 within 1e-4 relative (float64
-  against float32 distances).
+* DAISY descriptors: rtol 1e-4, atol 1e-5 against JAX.  Both sum the ring
+  blurs' float32 products, in other orders, and XLA contracts the bilinear
+  blend into FMAs.  The numpy golden keeps its own 2e-4 relative bar.
+* Blur operators: 1e-5 on unit-range data (float32 sums in other orders).
+* knn: the same nearest index; d1 and d2 within 1e-4 relative (float32
+  sums in other orders).  Ratio tests within float32 rounding of their
+  threshold: the decision of exact arithmetic (a float64 golden).
 * RANSAC: the port draws other hypotheses than JAX's threefry, so the bar
   is at transform level: the four corners mapped by the two matrices agree
   within 0.05 px on a match set with 30% outliers.
@@ -155,6 +155,31 @@ def test_knn_top2_matches_jax(rng, q, t, chunk):
     np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
 
 
+def test_ratio_near_ties_decided_in_float64(rng):
+    """Queries planted with d1 = 0.25 d2 (1 + e), |e| ~ 1e-7, below
+    float32's resolution of the distances: every ratio test and nearest
+    index equals a float64 golden on the same float32 descriptors."""
+    n, d = 48, 200
+    basis = np.linalg.qr(rng.standard_normal((d, d)))[0]
+    eps = rng.uniform(-3e-7, 3e-7, n)
+    # query i, its nearest and its runner-up share an offset 4 o_i that
+    # keeps the other queries' rows at a squared distance of 32 or more
+    offset = 4.0 * basis[3::4][:n]
+    query = basis[0::4][:n] + offset
+    near = basis[1::4][:n] * np.sqrt(1.0 + 2.0 * eps)[:, None] + offset  # d1 = 2 (1 + e)
+    far = basis[2::4][:n] * np.sqrt(7.0) + offset  # d2 = 8
+    train = np.concatenate([near, far, 10.0 * _desc(rng, 40)]).astype(np.float32)
+    query = query.astype(np.float32)
+    qv, tv = np.ones(n, bool), np.ones(len(train), bool)
+    good, idx = tmatch.match_descriptors(*(torch.from_numpy(a) for a in (train, query, tv, qv)))
+    dist = ((query[:, None, :].astype(np.float64) - train[None].astype(np.float64)) ** 2).sum(-1)
+    order = np.argsort(dist, axis=1)
+    d1, d2 = np.take_along_axis(dist, order[:, :2], axis=1).T
+    np.testing.assert_array_equal(good.numpy(), d1 < 0.25 * d2)
+    assert 0 < good.numpy().sum() < n  # both sides of the threshold were planted
+    np.testing.assert_array_equal(idx.numpy(), order[:, 0])
+
+
 CORNERS = np.array([[0, 0, 1], [1000, 0, 1], [0, 1000, 1], [1000, 1000, 1]], float).T
 
 
@@ -204,9 +229,9 @@ def test_tiled_features_match_jax(path):
 
 
 def test_find_features_blank_and_dispatch():
-    assert not ttf.find_features(np.zeros((120, 120), np.uint8), 1000).is_valid()
+    assert not ttf.find_features(np.zeros((120, 120), np.uint8), 1000, device="cpu").is_valid()
     img = _textured(np.random.default_rng(2), 140, 150)
-    f = ttf.find_features(img, 100)  # 4 tiles of 10^4 px, 5000 keypoints each
+    f = ttf.find_features(img, 100, device="cpu")  # 4 tiles of 10^4 px, 5000 keypoints each
     grid = TileGrid.for_image(img.shape, 100, 51)
     assert f.coords.shape == (grid.num_tiles * ttf.features_per_tile(grid), 2)
     assert f.is_valid() and f.num_valid == int(f.valid.sum())
@@ -231,7 +256,8 @@ def hard_pair():
 
 def test_match_features_hard_transform(hard_pair):
     ref, mov, fwd, want = hard_pair
-    got = ttf.match_features(ttf.find_features(ref, 500), ttf.find_features(mov, 500))
+    got = ttf.match_features(ttf.find_features(ref, 500, device="cpu"),
+                             ttf.find_features(mov, 500, device="cpu"))
     gy, gx = np.mgrid[0:460:20, 0:480:20].astype(np.float64)
     pts = np.stack([gx.ravel(), gy.ravel(), np.ones(gx.size)])
     assert np.abs(got @ pts - want @ pts).max() < 0.1

@@ -1,6 +1,7 @@
 """K1-K6 on the card against their plain PyTorch versions on the same card,
 the affine warp through K1's row window, the unpaired Farneback route
-(K6), and the pinned, streamed apply of the CLI on the card.
+(K6), the matcher's near-ties, and the pinned, streamed apply of the CLI on
+the card.
 
 These tests need an NVIDIA GPU and nvcc: the kernels are CUDA C++ with no
 CPU build, so without a card every test here skips.  The file imports only
@@ -243,3 +244,26 @@ def test_stream_apply_pinned_on_card(gen, dev):
     assert not t.is_alive() and not errors, errors
     for k, p in planes:
         np.testing.assert_array_equal(got[k], np.round(p.astype(np.float32) * 0.5).astype(np.uint16))
+
+
+@pytest.mark.cuda
+def test_match_near_ties_on_card_equal_cpu(gen, dev):
+    """Ratio tests within float32 rounding of their threshold are decided in
+    float64, so cuBLAS and the CPU's BLAS give the same matches."""
+    from microaligner_tpu_torch.features.match import match_descriptors
+
+    n, d = 48, 200
+    basis = np.linalg.qr(gen.standard_normal((d, d)))[0]
+    eps = gen.uniform(-3e-7, 3e-7, n)
+    offset = 4.0 * basis[3::4][:n]
+    query = (basis[0::4][:n] + offset).astype(np.float32)
+    near = basis[1::4][:n] * np.sqrt(1.0 + 2.0 * eps)[:, None] + offset
+    far = basis[2::4][:n] * np.sqrt(7.0) + offset
+    noise = gen.random((3000, d))
+    train = np.concatenate([near, far, 10.0 * noise / np.linalg.norm(noise, axis=1, keepdims=True)])
+    args = [torch.from_numpy(train.astype(np.float32)), torch.from_numpy(query),
+            torch.ones(len(train), dtype=torch.bool), torch.ones(n, dtype=torch.bool)]
+    good, idx = match_descriptors(*(a.to(dev) for a in args))
+    want_good, want_idx = match_descriptors(*args)
+    assert torch.equal(good.cpu(), want_good) and torch.equal(idx.cpu(), want_idx)
+    assert 0 < int(want_good.sum()) < n

@@ -106,7 +106,7 @@ def _register_both(band_rows, use_dog):
         (float(line.split("after:")[1].split("|")[0]), float(line.split("before:")[1]))
         for line in buf.getvalue().splitlines() if "MI score after" in line
     ]
-    treg = _configure(port.OptFlowRegistrator(), ref, mov, use_dog)
+    treg = _configure(port.OptFlowRegistrator(device="cpu"), ref, mov, use_dog)
     treg.band_rows = band_rows
     tflow = treg.register()
     return dict(ref=ref, mov=mov, jflow=jflow, jscores=jscores, tflow=tflow,
@@ -143,7 +143,7 @@ def test_warped_u16_plane(registered):
     plane = cv.GaussianBlur(rng.random((H, W), dtype=np.float32), (0, 0), 6.0)
     plane = cv.normalize(plane, None, 0, 60000, cv.NORM_MINMAX).astype(np.uint16)
     outs = []
-    for warper, flow in ((JWarper(), registered["jflow"]), (port.Warper(), registered["tflow"])):
+    for warper, flow in ((JWarper(), registered["jflow"]), (port.Warper(device="cpu"), registered["tflow"])):
         warper.tile_size, warper.overlap = TILE, OVERLAP
         warper.image, warper.flow = plane, flow
         outs.append(warper.warp())
@@ -188,7 +188,7 @@ def test_dense_banded_flow_and_fused_warp(band_rows, monkeypatch):
     )
     np.testing.assert_array_equal(flow.numpy(), got)
     # the fused warp zeroes the band halo's flow: it equals the band warp
-    sep = port.Warper()
+    sep = port.Warper(device="cpu")
     sep.tile_size, sep.overlap, sep.band_rows = 100, 30, band_rows
     sep.image, sep.flow = mov, got
     np.testing.assert_array_equal(warped.numpy(), sep.warp())
@@ -222,22 +222,22 @@ def test_merge_two_flows():
 def test_register_device_and_checks():
     ref, mov = _warped_pair(seed=4)
     ref, mov = ref[:200, :210], mov[:200, :210]
-    reg = port.OptFlowRegistrator()
+    reg = port.OptFlowRegistrator(device="cpu")
     reg.num_pyr_lvl, reg.tile_size, reg.overlap, reg.num_iterations = 1, 1000, 50, 2
     reg.ref_img, reg.mov_img = torch.from_numpy(ref), mov
     dev_flow = reg.register_device()
     assert isinstance(dev_flow, torch.Tensor) and dev_flow.shape == (200, 210, 2)
-    reg2 = port.OptFlowRegistrator()
+    reg2 = port.OptFlowRegistrator(device="cpu")
     reg2.num_pyr_lvl, reg2.tile_size, reg2.overlap, reg2.num_iterations = 1, 1000, 50, 2
     reg2.ref_img, reg2.mov_img = ref, mov
     np.testing.assert_array_equal(reg2.register(), dev_flow.numpy())
     with pytest.raises(ValueError):
         reg2.ref_img = np.zeros((4, 5, 6), np.uint8)
-    small = port.OptFlowRegistrator()
+    small = port.OptFlowRegistrator(device="cpu")
     small.ref_img, small.mov_img = ref[:150, :150], mov[:150, :150]
     with pytest.raises(ValueError):
         small.register()
-    zero = port.OptFlowRegistrator()
+    zero = port.OptFlowRegistrator(device="cpu")
     zero.num_pyr_lvl = 0
     zero.ref_img, zero.mov_img = ref, mov
     with pytest.raises(ValueError):
@@ -253,7 +253,7 @@ def test_tile_flow_calc(tile):
     ref, mov = _warped_pair(seed=8)
     ref, mov = ref[:200, :230], mov[:200, :230]
     flows = []
-    for calc in (JCalc(), TCalc()):
+    for calc in (JCalc(), TCalc(device="cpu")):
         calc.tile_size, calc.overlap, calc.win_size, calc.num_iter = tile, 30, 29, 2
         calc.ref_img, calc.mov_img = ref, mov
         flows.append(calc.calc_flow())
