@@ -13,13 +13,24 @@ pixel's system is solved with the 1e-3 regulariser:
 det = g11 g22 - g12^2 + 1e-3, fx = (g11 h2 - g12 h1) / det,
 fy = (g22 h1 - g12 h2) / det.
 
-On the H100 the kernel (``csrc/agg.cu``) is bound by f32 arithmetic: 2r+1
-multiply-adds per pass, channel and pixel (99 x 5 x 2 on the main path).
-Each block stages its strip and the r-pixel halo in shared memory, so each
-input is read from device memory once per pass; the row pass writes a
-scratch tensor this wrapper allocates, and the column pass fuses the solve
-and writes only fx and fy.  Its staging limits r to 128, checked here.  The
-row pass alone is :func:`smooth_w`, the counterpart of ``pallas_smooth_w``.
+On the H100 the kernel (``csrc/agg.cu``) is bound by float32 arithmetic: one
+fused multiply-add a tap, pass, channel and pixel (99 x 5 x 2 on the main
+path), with the scratch's round trip through device memory second.  A
+thread owns 16 consecutive outputs along the filtered axis and slides a
+register window over the inputs they need, so each value loaded from shared
+memory feeds 16 multiply-adds; the taps come in the kernel's parameters
+(constant memory), not from shared memory.  A tile is 256 outputs along the
+axis by 32 lines, staged with its 2r halo lines in dynamic shared memory;
+persistent blocks walk over the tiles and copy the next one with
+``cp.async`` (16 bytes a thread where W is a multiple of 4) while they sum
+the current one.  The row pass writes a scratch tensor this wrapper
+allocates, and the column pass fuses the solve and writes only fx and fy.
+The fused multiply-add rounds once a tap where the plain version rounds
+twice, so the kernel agrees with :func:`smooth5_solve_plain` to a bar
+(1e-4 px) and is no further from a float64 run than the plain version is;
+it is not bit-equal to it.  The tap table limits r to 128, checked here.
+The row pass alone is :func:`smooth_w`, the counterpart of
+``pallas_smooth_w``.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ from microaligner_tpu_torch.ops import cuda_lib
 
 __all__ = [
     "agg_kernel",
+    "block_shared_bytes",
     "smooth_axis_plain",
     "smooth5_solve",
     "smooth5_solve_plain",
@@ -40,7 +52,31 @@ __all__ = [
     "smooth_w_plain",
 ]
 
-MAX_HALF_WINDOW = 128  # the CUDA kernel's shared-memory staging limit on r
+# the CUDA kernel's limit on r: its tap table in the kernel parameters holds
+# 2 * 128 + 1 taps (two staged tiles of 256 + 2r lines then take 130 KB of the
+# 227 KB of shared memory a block can have)
+MAX_HALF_WINDOW = 128
+# agg.cu's launch shape: a tile of either pass is 32 lines x 256 outputs along
+# the filtered axis, a block is 512 threads, a step of the sum takes 20 taps
+# in the row pass and 11 in the column pass
+_TILE = (32, 256)
+BLOCK_THREADS = 512
+_STEP_TAPS = {"smooth_rows_kernel": 20, "smooth_cols_solve_kernel": 11}
+
+
+def block_shared_bytes(kernel: str, r: int) -> int:
+    """Dynamic shared memory a block of ``smooth_rows_kernel`` or
+    ``smooth_cols_solve_kernel`` takes at half-window ``r``: two tiles of
+    256 + 2r lines (the taps rounded up to whole steps) by 32 floats.  The
+    row pass rounds its row stride up to 4 mod 8 floats."""
+    step = _STEP_TAPS[kernel]
+    ntp = -(-(2 * r + 1) // step) * step
+    if kernel == "smooth_rows_kernel":
+        lines = -(-(_TILE[1] + ntp) // 4) * 4
+        lines += 4 if lines % 8 == 0 else 0
+    else:
+        lines = _TILE[1] + ntp - 1
+    return 4 * 2 * _TILE[0] * lines
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,15 +122,20 @@ smooth5_solve_plain.calls = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _taps_on(winsize: int, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(agg_kernel(winsize), device=device)
+def _taps_host(winsize: int) -> torch.Tensor:
+    """The taps as a CPU tensor: the C entry points copy them into the
+    kernels' parameters."""
+    return torch.from_numpy(agg_kernel(winsize))
 
 
-def _check_cuda_window(name: str, winsize: int, planes: int, h: int) -> int:
+def _check_cuda_window(name: str, winsize: int, planes: int, h: int, w: int) -> int:
     r = winsize // 2
     if r > MAX_HALF_WINDOW:
         raise ValueError(f"{name}: winsize // 2 = {r} exceeds the kernel's limit {MAX_HALF_WINDOW}")
-    cuda_lib.check_grid(name, planes, h)  # the row pass: one block row per image row
+    # the kernels number their tiles with an int; the row pass has the most
+    # (its tiles start up to 3 columns left of the image)
+    if planes * -(-h // _TILE[0]) * -(-(w + 3) // _TILE[1]) >= 2**31:
+        raise ValueError(f"{name}: {planes} planes of {h} x {w} are more tiles than an int counts")
     return r
 
 
@@ -119,9 +160,9 @@ def smooth_w(x: torch.Tensor, winsize: int) -> torch.Tensor:
         return smooth_w_plain(x, winsize)
     cuda_lib.require_cuda(x)
     n, c, h, w = x.shape
-    r = _check_cuda_window("smooth_w", winsize, n * c, h)
+    r = _check_cuda_window("smooth_w", winsize, n * c, h, w)
     out = torch.empty_like(x)
-    cuda_lib.call("ma_smooth_rows", x.device, x, out, _taps_on(winsize, x.device), n * c, h, w, r)
+    cuda_lib.call("ma_smooth_rows", x.device, x, out, _taps_host(winsize), n * c, h, w, r)
     smooth_w.launches += 1
     return out
 
@@ -143,12 +184,12 @@ def smooth5_solve(M: torch.Tensor, winsize: int):
         return smooth5_solve_plain(M, winsize)
     cuda_lib.require_cuda(M)
     n, _, h, w = M.shape
-    r = _check_cuda_window("smooth5_solve", winsize, 5 * n, h)
+    r = _check_cuda_window("smooth5_solve", winsize, 5 * n, h, w)
     scratch = torch.empty_like(M)
     fx = torch.empty((n, h, w), dtype=torch.float32, device=M.device)
     fy = torch.empty_like(fx)
     cuda_lib.call("ma_smooth5_solve", M.device, M, scratch, fx, fy,
-                  _taps_on(winsize, M.device), n, h, w, r)
+                  _taps_host(winsize), n, h, w, r)
     smooth5_solve.launches += 1
     return fx, fy
 
