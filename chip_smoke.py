@@ -8,8 +8,9 @@ Run it from the repository root; it needs one card and takes no arguments.  Phas
 
 1. build: compile ``microaligner_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
    (one nvcc process a source, all at once); the two K3 kernels' registers,
-   shared memory a block and blocks an SM are printed, and a spill fails
-   the run;
+   shared memory a block and blocks an SM, and the registers and shared
+   memory of K5's six instantiations (one a dtype), are printed, and a
+   spill in either fails the run;
 2. kernels: K1-K4 against their plain PyTorch versions on the card, at the
    main path's band shapes (4296 x 4296, 1256 x 20680) and edge cases, with
    CUDA-event times of kernel and plain version; K3 also at windows 11 and
@@ -19,7 +20,8 @@ Run it from the repository root; it needs one card and takes no arguments.  Phas
    (N planes, one flow) against its plain version and against N K1
    launches, bit for bit, at 8 planes of a 4096^2 band slab and 2 of a
    20480^2 one, each timed under a random +-20 px flow and under the z-stack
-   apply's smooth flow, and at the edge shapes;
+   apply's smooth flow, and at the edge shapes under both flows, with the
+   share of its tiles that took the staged branch (both branches must run);
    K6 (one image's expansion) bit for bit against its plain version and
    K2's expansions at those slabs and at H or W of 1-3, timed against
    ``F.conv2d`` with the five folded filters, K2, and 2 x K6 plus the
@@ -38,9 +40,11 @@ Run it from the repository root; it needs one card and takes no arguments.  Phas
    apply, with stage times, peak device memory and the kernels' launch counts,
    and one 4096^2 register under torch.profiler (device time by kernel and
    the device's busy share; the table goes to ``chiprun_out/``);
-5. z-stack apply: 8 u16 4096^2 planes warped by one flow through
-   ``_apply_flow_planes`` (K5), which must agree bit for bit with
-   ``_apply_flow_plane`` on each plane (K1);
+5. z-stack apply: 8 4096^2 planes warped by one flow through
+   ``_apply_flow_planes`` (one K5 launch a band, the stored dtype in and
+   out) as u16, u8, i16 and f32 stacks, each bit for bit equal to
+   ``_apply_flow_plane`` on each plane (K1); the u16 apply is timed against
+   its bytes bound;
 6. the CLI: that 4096^2 stack written as an OME CycleStack and run through
    ``microaligner_tpu_torch.__main__.main`` in process and once more as
    ``python -m microaligner_tpu_torch``; then a 2-cycle x 2-channel 20480^2
@@ -158,30 +162,33 @@ def cuda_ms(fn, reps: int) -> float:
 class Counters:
     """The launch counters of every kernel wrapper and the call counters of
     their plain versions: ``reset()`` just before a path, ``read()`` just
-    after it."""
+    after it.  K5 has two entries, the float32 one and the z-stack apply's
+    band entry; their counts are summed."""
 
     def __init__(self):
-        from microaligner_tpu_torch.ops import kernel_agg, kernel_matrices, kernel_poly, kernel_sample
+        from microaligner_tpu_torch.ops import kernel_agg, kernel_matrices, kernel_poly, kernel_sample as ks
 
-        self.wrappers = {"K1": kernel_sample.sample_displaced, "K2": kernel_poly.poly_pair_m,
-                         "K3": kernel_agg.smooth5_solve, "K4": kernel_matrices.update_matrices,
-                         "K5": kernel_sample.sample_displaced_multi, "K6": kernel_poly.poly_exp5}
-        self.plains = {"K1": kernel_sample.sample_displaced_plain, "K2": kernel_poly.poly_pair_m_plain,
-                       "K3": kernel_agg.smooth5_solve_plain, "K4": kernel_matrices.update_matrices_plain,
-                       "K5": kernel_sample.sample_displaced_multi_plain, "K6": kernel_poly.poly_exp5_plain}
+        self.wrappers = {"K1": (ks.sample_displaced,), "K2": (kernel_poly.poly_pair_m,),
+                         "K3": (kernel_agg.smooth5_solve,), "K4": (kernel_matrices.update_matrices,),
+                         "K5": (ks.sample_displaced_multi, ks.sample_band_multi), "K6": (kernel_poly.poly_exp5,)}
+        self.plains = {"K1": (ks.sample_displaced_plain,), "K2": (kernel_poly.poly_pair_m_plain,),
+                       "K3": (kernel_agg.smooth5_solve_plain,), "K4": (kernel_matrices.update_matrices_plain,),
+                       "K5": (ks.sample_displaced_multi_plain, ks.sample_band_multi_plain),
+                       "K6": (kernel_poly.poly_exp5_plain,)}
 
     def reset(self) -> None:
-        for fn in (*self.wrappers.values(), *self.plains.values()):
-            if hasattr(fn, "launches"):
-                fn.launches = 0
-            if hasattr(fn, "calls"):
-                fn.calls = 0
+        for fns in (*self.wrappers.values(), *self.plains.values()):
+            for fn in fns:
+                if hasattr(fn, "launches"):
+                    fn.launches = 0
+                if hasattr(fn, "calls"):
+                    fn.calls = 0
 
     def read(self, path: str, kernels) -> dict:
         """Launches of every kernel since ``reset``; raises unless each of
         ``kernels`` launched and no plain version ran."""
-        launches = {k: w.launches for k, w in self.wrappers.items()}
-        plain = {k: f.calls for k, f in self.plains.items()}
+        launches = {k: sum(w.launches for w in fns) for k, fns in self.wrappers.items()}
+        plain = {k: sum(f.calls for f in fns) for k, fns in self.plains.items()}
         log(f"[{path}] kernel launches {launches}; plain versions called {plain}")
         require(all(launches[k] > 0 for k in kernels), f"{path}: a kernel of the path was never launched")
         require(not any(plain.values()), f"{path}: a plain version ran on the path")
@@ -405,6 +412,8 @@ def check_kernels(dev, rng) -> dict:
                 f"{results['K3']['clocks_under_load' + key]}")
         for k in ("K1", "K2", "K3", "K4"):
             t = f" kernel {times[k][0]:.4f} ms plain {times[k][1]:.4f} ms" if k in times else ""
+            if k in times and times[k][2] is not None:
+                t += f" grid_sample {times[k][2]:.4f} ms"
             log(f"[kernels] {k} {label} {h}x{w}: max_abs_err {line[k]:.3e} ({TOL[k]}){t}")
         return times
 
@@ -446,16 +455,18 @@ def smooth_flow(h, w, dev):
 
 def check_k5(dev, rng, planes=((8,) + BAND_SHAPES[0], (2,) + BAND_SHAPES[1])) -> dict:
     """K5 against its plain version and against N K1 launches (one a plane,
-    the per-plane apply's path), bit for bit.  The band slabs are timed
-    under two flows, in this order: a +-20 px random flow (a stress
-    reading: every thread's taps fall on sectors of their own) and the
-    smooth flow of the z-stack apply (what the system produces; its times
-    are the ones the ``kernels`` line reports)."""
+    the per-plane apply's path), bit for bit, with the share of its tiles
+    that took the staged branch (the others gather from global memory).
+    The band slabs are timed under two flows, in this order: a +-20 px
+    random flow (a stress reading: no tile's taps fit the staged window)
+    and the smooth flow of the z-stack apply (what the system produces; its
+    times are the ones the ``kernels`` line reports).  The edge shapes (H <
+    16, an odd width, which takes 4-byte staging loads) run both flows."""
     from microaligner_tpu_torch.ops import kernel_sample as ks
 
-    res = {"max_abs_err": 0.0}
+    res = {"max_abs_err": 0.0, "staged_share": {}}
     cases = [(n, h, w, label, flow, True) for n, h, w, label in planes for flow in ("random", "smooth")]
-    cases += [(3, h, w, label, "random", False) for h, w, label in EDGE_SHAPES]
+    cases += [(3, h, w, label, flow, False) for h, w, label in EDGE_SHAPES for flow in ("random", "smooth")]
     for n, h, w, label, flow_kind, timed in cases:
         imgs = torch.from_numpy(rng.random((n, h, w), dtype=np.float32)).to(dev)
         if flow_kind == "random":
@@ -464,7 +475,10 @@ def check_k5(dev, rng, planes=((8,) + BAND_SHAPES[0], (2,) + BAND_SHAPES[1])) ->
             del flow
         else:
             fx, fy = smooth_flow(h, w, dev)
-        got = ks.sample_displaced_multi(imgs, fx, fy)
+        staged = torch.zeros(1, dtype=torch.int32, device=dev)
+        got = ks.sample_displaced_multi(imgs, fx, fy, staged=staged)
+        share = int(staged.item()) / (-(-h // ks.K5_TILE[0]) * -(-w // ks.K5_TILE[1]))
+        res["staged_share"][f"{label} {flow_kind}"] = share
         want = ks.sample_displaced_multi_plain(imgs, fx, fy)
         per_plane = torch.stack([ks.sample_displaced(imgs[i : i + 1], fx[None], fy[None])[0]
                                  for i in range(n)])
@@ -498,14 +512,20 @@ def check_k5(dev, rng, planes=((8,) + BAND_SHAPES[0], (2,) + BAND_SHAPES[1])) ->
             t = (f" kernel {min(k_1, k_2):.4f} ms ({100 * res['bound_ms' + key] / min(k_1, k_2):.0f}% of its "
                  f"bound), {n} x K1 {min(n1, n2):.4f} ms, plain {min(p1, p2):.4f} ms, "
                  f"grid_sample {lib:.4f} ms, bound {res['bound_ms' + key]:.4f} ms")
-        log(f"[kernels] K5 {label} {n}x{h}x{w}, {flow_kind} flow: max_abs_err {err:.3e} ({TOL['K5']}){t}")
+        log(f"[kernels] K5 {label} {n}x{h}x{w}, {flow_kind} flow: max_abs_err {err:.3e} ({TOL['K5']}); "
+            f"staged tiles {100 * share:.1f}%{t}")
         del imgs, fx, fy, got, want, per_plane
+    shares = res["staged_share"].values()
+    require(max(shares) > 0 and min(shares) < 1, f"K5: both branches must run, staged shares {res['staged_share']}")
     for bad in (lambda: ks.sample_displaced_multi(torch.zeros((2, 4, 4), device=dev),
                                                   torch.zeros((2, 4, 4), device=dev),
                                                   torch.zeros((2, 4, 4), device=dev)),
                 lambda: ks.sample_displaced_multi(torch.zeros((2, 4, 4), device=dev, dtype=torch.float16),
                                                   torch.zeros((4, 4), device=dev),
-                                                  torch.zeros((4, 4), device=dev))):
+                                                  torch.zeros((4, 4), device=dev)),
+                lambda: ks.sample_band_multi(torch.zeros((2, 4, 4), device=dev, dtype=torch.float64),
+                                             torch.zeros((4, 4, 2), device=dev),
+                                             torch.zeros((2, 4, 4), device=dev, dtype=torch.float64), 0, 8, 2)):
         try:
             bad()
         except (TypeError, ValueError):
@@ -860,36 +880,62 @@ def main_path(dev, rng, out_dir: Path, counters: Counters, n_stack=4096, n_big=2
 
 # -- phase 5 ---------------------------------------------------------------
 
+ZSTACK_DTYPES = (torch.uint16, torch.uint8, torch.int16, torch.float32)  # u16: the bench's
+
+
 def zstack_apply(dev, rng, counters: Counters, n=4096, n_planes=8, tile=1000, overlap=100) -> dict:
     """Config 4 of the JAX package's bench (``bench.py::bench_zstack_apply``):
-    8 u16 planes on the card warped by one flow through ``_apply_flow_planes``
-    (K5), held bit for bit against ``_apply_flow_plane`` on each plane (K1)."""
+    8 4096^2 planes on the card warped by one flow through
+    ``_apply_flow_planes``, one K5 launch a band that reads the stored
+    planes and writes the rounded result, for u16 (the bench's), u8, i16 and
+    f32 stacks; each held bit for bit against ``_apply_flow_plane`` on each
+    plane (K1).  The u16 apply is timed against the per-plane path and its
+    bound (stored planes read once and written once, the flow read once)."""
+    from microaligner_tpu_torch.optflow.flow_calc import band_rows_for
     from microaligner_tpu_torch.pipeline.runner import _apply_flow_plane, _apply_flow_planes
     from microaligner_tpu_torch.tiles import TileGrid
 
-    planes = torch.from_numpy(rng.integers(0, 65535, (n_planes, n, n)).astype(np.uint16)).to(dev)
+    base = torch.from_numpy(rng.integers(0, 65535, (n_planes, n, n)).astype(np.uint16)).to(dev)
+    wide = base.to(torch.int32)
+    stacks = {torch.uint16: base, torch.uint8: (wide % 256).to(torch.uint8),
+              torch.int16: (wide - 32768).to(torch.int16), torch.float32: wide.to(torch.float32) / 65535}
+    del wide
     flow = torch.stack(smooth_flow(n, n, dev), dim=-1).contiguous()
     grid = TileGrid.for_image((n, n), tile, overlap)
+    bands = -(-n // band_rows_for(grid))
 
-    def per_plane():
-        return torch.stack([_apply_flow_plane(p, flow, grid, torch.uint16) for p in planes])
+    def per_plane(planes, dt):
+        return torch.stack([_apply_flow_plane(p, flow, grid, dt) for p in planes])
 
     counters.reset()
-    multi = _apply_flow_planes(planes, flow, grid, torch.uint16)
+    outs = {dt: _apply_flow_planes(planes, flow, grid, dt) for dt, planes in stacks.items()}
     torch.cuda.synchronize()
     launches = counters.read("zstack", ("K5",))
     require(launches["K1"] == 0, f"zstack: the z-stack apply launched K1 {launches['K1']} times")
-    require(multi.dtype == torch.uint16 and multi.shape == planes.shape, f"{multi.dtype} {tuple(multi.shape)}")
-    require(torch.equal(multi, per_plane()), "z-stack apply: K5 and K1 a plane differ")
-    # order per-plane, K5, K5, per-plane
-    t1 = cuda_ms(per_plane, 5)
+    require(launches["K5"] == bands * len(stacks),
+            f"zstack: {launches['K5']} K5 launches for {len(stacks)} stacks of {bands} band(s)")
+    for dt, planes in stacks.items():
+        multi = outs[dt]
+        require(multi.dtype == dt and multi.shape == planes.shape, f"{multi.dtype} {tuple(multi.shape)}")
+        require(torch.equal(multi, per_plane(planes, dt)), f"z-stack apply, {dt}: K5 and K1 a plane differ")
+    del outs
+    res = {"launches": launches, "bands": bands, "apply_ms": {}}
+    for dt, planes in stacks.items():
+        res["apply_ms"][str(dt)] = min(cuda_ms(lambda: _apply_flow_planes(planes, flow, grid, dt), 5)
+                                       for _ in range(2))
+    # u16, order per-plane, K5, K5, per-plane
+    planes = stacks[torch.uint16]
+    t1 = cuda_ms(lambda: per_plane(planes, torch.uint16), 5)
     m1 = cuda_ms(lambda: _apply_flow_planes(planes, flow, grid, torch.uint16), 5)
     m2 = cuda_ms(lambda: _apply_flow_planes(planes, flow, grid, torch.uint16), 5)
-    t2 = cuda_ms(per_plane, 5)
-    res = {"multi_ms": min(m1, m2), "per_plane_ms": min(t1, t2), "launches": launches}
-    log(f"[zstack] {n_planes} u16 {n}^2 planes, one flow, tile {tile} overlap {overlap}: "
-        f"_apply_flow_planes (K5) {res['multi_ms']:.3f} ms, _apply_flow_plane a plane (K1) "
-        f"{res['per_plane_ms']:.3f} ms; outputs bit-equal")
+    t2 = cuda_ms(lambda: per_plane(planes, torch.uint16), 5)
+    nbytes = n_planes * n * n * 2 * 2 + 8 * n * n
+    res.update(multi_ms=min(m1, m2), per_plane_ms=min(t1, t2), bound_ms=1e3 * nbytes / H100_BYTES_PER_S)
+    log(f"[zstack] {n_planes} u16 {n}^2 planes, one flow, tile {tile} overlap {overlap}, {bands} band(s): "
+        f"_apply_flow_planes (K5) {res['multi_ms']:.4f} ms ({100 * res['bound_ms'] / res['multi_ms']:.0f}% of its "
+        f"{res['bound_ms']:.4f} ms bound, bytes), _apply_flow_plane a plane (K1) {res['per_plane_ms']:.3f} ms; "
+        f"u8, i16, f32 stacks {', '.join(f'{v:.4f}' for v in list(res['apply_ms'].values())[1:])} ms; "
+        f"all bit-equal to K1 a plane")
     return res
 
 
@@ -1386,6 +1432,34 @@ def k3_build_lines(ptxas: str) -> dict:
     return out
 
 
+# the Itanium mangling of K5's dtype (its template arguments Tin = Tout)
+K5_MANGLED = {"h": "u8", "a": "i8", "t": "u16", "s": "i16", "i": "i32", "f": "f32"}
+
+
+def k5_build_lines(ptxas: str) -> dict:
+    """Registers, spill bytes and shared memory a block of K5's
+    instantiations (``k5::sample_multi_kernel<Tin, Tout>``) from ``nvcc
+    -Xptxas -v``'s output (empty when the library was already built);
+    raises if one spills."""
+    out = {}
+    lines = ptxas.splitlines()
+    for i, line in enumerate(lines):
+        found = re.search(r"Compiling entry function '\w*?sample_multi_kernelI(\w)(\w)E", line)
+        if not found:
+            continue
+        text = " ".join(lines[i + 1 : i + 4])
+        spills = [int(v) for v in re.findall(r"(\d+) bytes spill", text)]
+        regs = int(re.search(r"Used (\d+) registers", text).group(1))
+        smem = int(re.search(r"(\d+) bytes smem", text).group(1))
+        name = K5_MANGLED[found.group(1)]
+        out[name] = {"registers": regs, "spill_bytes": sum(spills), "shared_bytes": smem}
+        log(f"[build] K5 {name}: {regs} registers, {sum(spills)} spill bytes, {smem} B of shared memory a block")
+        require(len(spills) == 2 and sum(spills) == 0, f"K5 {name} spills: {text}")
+    if ptxas:
+        require(len(out) == 6, f"ptxas named {len(out)} K5 instantiations, not 6: {sorted(out)}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this run needs an NVIDIA GPU")
@@ -1410,6 +1484,7 @@ def main():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
     report["k3_build"] = k3_build_lines(ptxas)
+    report["k5_build"] = k5_build_lines(ptxas)
 
     kernels = check_kernels(dev, rng)
     kernels["K5"] = check_k5(dev, rng)

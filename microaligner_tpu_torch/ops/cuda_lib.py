@@ -39,7 +39,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of each entry point; the trailing pointer is the stream
 SIGNATURES = {
     "ma_sample_displaced": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "ma_sample_displaced_multi": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "ma_sample_multi": (_P, _P, _P, _I, _F, _P) + (_I,) * 9 + (_P, _P),
     "ma_poly_pair_m": (_P, _P, _P, _P, _P, _I, _I, _I) + (_F,) * 8 + (_P,),
     "ma_poly_exp5": (_P, _P, _I, _I, _I) + (_F,) * 8 + (_P,),
     "ma_smooth5_solve": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

@@ -24,9 +24,14 @@ plain K1.
 
 K5 (:func:`sample_displaced_multi`, ``csrc/sample.cu``) replaces
 ``microaligner_tpu/ops/pallas_sample.py::pallas_sample_displaced_multi``, the
-z-stack apply: every plane of a cycle pulled by the cycle's one flow.  Its
-thread reads the flow and computes the taps' offsets and weights once, then
-gathers from every plane; each plane equals a K1 launch on it bit for bit.
+z-stack apply: every plane of a cycle pulled by the cycle's one flow.  A
+block reads the flow and computes its outputs' taps once, stages each
+plane's window of taps in shared memory (or gathers straight from global
+memory where a flow tears the tile apart), and sums every plane from it;
+each plane equals a K1 launch on it bit for bit.  :func:`sample_band_multi`
+is the same kernel typed in and out: one band of the z-stack apply, read
+from the stored planes and rounded into the output (``round_to_dtype``),
+with the band's halo read as zeros.
 """
 
 from __future__ import annotations
@@ -34,12 +39,16 @@ from __future__ import annotations
 import torch
 
 from microaligner_tpu_torch.ops import cuda_lib
+from microaligner_tpu_torch.ops.filters import round_to_dtype
+from microaligner_tpu_torch.ops.pad import zero_pad
 
 __all__ = [
     "sample_displaced",
     "sample_displaced_plain",
     "sample_displaced_multi",
     "sample_displaced_multi_plain",
+    "sample_band_multi",
+    "sample_band_multi_plain",
     "bilinear_taps",
 ]
 
@@ -154,6 +163,30 @@ def sample_displaced_multi_plain(imgs: torch.Tensor, fx: torch.Tensor, fy: torch
 
 sample_displaced_multi_plain.calls = 0
 
+# dtypes K5 reads and writes, by their code in csrc/sample.cu
+DTYPE_CODES = {torch.uint8: 0, torch.int8: 1, torch.uint16: 2, torch.int16: 3, torch.int32: 4,
+               torch.float32: 5}
+K5_TILE = (16, 64)  # output rows and columns of a K5 block (csrc/sample.cu, k5::kTileH, kTileW)
+
+
+def _launch_multi(name, imgs, fx, fy, fstride, fsign, out, row0, rows, lo, hi, staged) -> bool:
+    """One K5 launch writing rows [row0, row0 + rows) of every plane of
+    ``out``; ``fx``/``fy`` are tensors whose first element is pixel 0's.
+    Returns whether it launched (nothing to write launches nothing)."""
+    n, h, w = imgs.shape
+    if (h + K5_TILE[0]) * w >= 2**31:
+        raise ValueError(f"{name}: planes of {h} x {w} exceed K5's 32-bit offsets inside a plane")
+    if staged is not None and (staged.dtype != torch.int32 or staged.device != imgs.device):
+        raise ValueError(f"{name}: staged must be an int32 tensor on {imgs.device}")
+    if n == 0 or rows == 0 or w == 0:
+        return False
+    cuda_lib.check_grid(name, 1, -(-rows // K5_TILE[0]))
+    # 16-byte loads of the staged windows need a row stride and a base on 16 bytes
+    vec = (w * imgs.element_size()) % 16 == 0 and imgs.data_ptr() % 16 == 0
+    cuda_lib.call("ma_sample_multi", imgs.device, imgs, fx, fy, fstride, fsign, out, n, h, w,
+                  row0, rows, lo, hi, DTYPE_CODES[imgs.dtype], int(vec), staged)
+    return True
+
 
 def _check_multi(imgs, fx, fy):
     if imgs.dim() != 3:
@@ -171,22 +204,105 @@ def _check_multi(imgs, fx, fy):
             raise ValueError(f"sample_displaced_multi: {name} must be contiguous")
 
 
-def sample_displaced_multi(imgs: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor) -> torch.Tensor:
+def sample_displaced_multi(imgs: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor,
+                           staged: torch.Tensor | None = None) -> torch.Tensor:
     """``out[n](p) = bilinear imgs[n](p + (fx, fy)(p))``, zero outside, for
     (N, H, W) float32 planes and one (H, W) float32 displacement field.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches K5 or raises.
+    A CPU tensor takes the plain version; a CUDA tensor launches K5 or
+    raises.  ``staged``, a one-element int32 tensor on the card, counts the
+    kernel's tiles that took the staged branch (no path of the system passes
+    one).
     """
     _check_multi(imgs, fx, fy)
     if imgs.device.type == "cpu":
         return sample_displaced_multi_plain(imgs, fx, fy)
     cuda_lib.require_cuda(imgs, fx, fy)
     n, h, w = imgs.shape
-    cuda_lib.check_grid("sample_displaced_multi", 1, -(-h // 8))  # 32 x 8 threads a block
     out = torch.empty_like(imgs)
-    cuda_lib.call("ma_sample_displaced_multi", imgs.device, imgs, fx, fy, out, n, h, w)
-    sample_displaced_multi.launches += 1
+    if _launch_multi("sample_displaced_multi", imgs, fx, fy, 1, 1.0, out, 0, h, 0, h, staged):
+        sample_displaced_multi.launches += 1
     return out
 
 
 sample_displaced_multi.launches = 0
+
+
+def band_bounds(h: int, row0: int, rows: int, overlap: int) -> tuple[int, int, int]:
+    """(interior rows, first and one past the last source row) of the band
+    of ``rows`` interior rows at ``row0`` with ``overlap`` rows of halo."""
+    return min(rows, h - row0), max(row0 - overlap, 0), min(row0 + rows + overlap, h)
+
+
+def sample_band_multi_plain(imgs: torch.Tensor, flow: torch.Tensor, out: torch.Tensor,
+                            row0: int, rows: int, overlap: int) -> torch.Tensor:
+    """Plain version of :func:`sample_band_multi`: the band's slab of the
+    zero canvas (``band_slab``), pulled by the band's flow zero-padded to the
+    slab, through K5's plain version; the interior rounded into ``out``."""
+    from microaligner_tpu_torch.optflow.flow_calc import band_slab  # optflow imports this module
+
+    sample_band_multi_plain.calls += 1
+    o = overlap
+    h, w = imgs.shape[1:]
+    n_in = band_bounds(h, row0, rows, o)[0]
+    src = band_slab(imgs, row0, rows, o)
+    fx = zero_pad(flow[row0 : row0 + n_in, :, 0], o, rows - n_in + o, o, o)
+    fy = zero_pad(flow[row0 : row0 + n_in, :, 1], o, rows - n_in + o, o, o)
+    warped = sample_displaced_multi_plain(src, -fx, -fy)
+    out[:, row0 : row0 + n_in] = round_to_dtype(warped[:, o : o + n_in, o : o + w], out.dtype)
+    return out
+
+
+sample_band_multi_plain.calls = 0
+
+
+def _check_band(imgs, flow, out, row0, rows, overlap):
+    if imgs.dim() != 3 or out.shape != imgs.shape:
+        raise ValueError(f"sample_band_multi takes (N, H, W) planes and output, got "
+                         f"{tuple(imgs.shape)} and {tuple(out.shape)}")
+    if imgs.dtype not in DTYPE_CODES or out.dtype != imgs.dtype:
+        raise TypeError(f"sample_band_multi: {imgs.dtype} planes into {out.dtype} are not taken "
+                        f"(one dtype of {sorted(map(str, DTYPE_CODES))} in and out)")
+    if flow.dtype != torch.float32:
+        raise TypeError(f"sample_band_multi: flow must be float32, got {flow.dtype}")
+    if flow.shape != imgs.shape[1:] + (2,):
+        raise ValueError(f"sample_band_multi: flow {tuple(flow.shape)} is not "
+                         f"{tuple(imgs.shape[1:]) + (2,)}")
+    for name, t in (("imgs", imgs), ("flow", flow), ("out", out)):
+        if t.device != imgs.device:
+            raise ValueError(f"sample_band_multi: {name} on {t.device}, imgs on {imgs.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"sample_band_multi: {name} must be contiguous")
+    if not (0 <= row0 < imgs.shape[1] and rows >= 1 and overlap >= 0):
+        raise ValueError(f"sample_band_multi: band at row {row0} of {rows} rows and overlap "
+                         f"{overlap} is outside {imgs.shape[1]} rows")
+
+
+def sample_band_multi(imgs: torch.Tensor, flow: torch.Tensor, out: torch.Tensor, row0: int,
+                      rows: int, overlap: int, staged: torch.Tensor | None = None) -> torch.Tensor:
+    """One band of the z-stack apply in one K5 launch, typed in and out.
+
+    Writes rows ``[row0, row0 + n_in)`` of (N, H, W) ``out`` (``n_in`` the
+    band's interior rows, fewer in the last band):
+    ``round_to_dtype(bilinear imgs(p - flow(p)), out.dtype)`` for the
+    (N, H, W) planes in their stored dtype (``out``'s, one of
+    ``DTYPE_CODES``) and the (H, W, 2) float32 flow.
+    Taps on source rows outside ``[row0 - overlap, row0 + rows + overlap)``
+    or outside the image read zero, as the zero canvas of ``band_slab``
+    gives.  Returns ``out``.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches K5 or
+    raises.  ``staged`` as for :func:`sample_displaced_multi`.
+    """
+    _check_band(imgs, flow, out, row0, rows, overlap)
+    if imgs.device.type == "cpu":
+        return sample_band_multi_plain(imgs, flow, out, row0, rows, overlap)
+    cuda_lib.require_cuda(imgs, flow, out)
+    n_in, lo, hi = band_bounds(imgs.shape[1], row0, rows, overlap)
+    if _launch_multi("sample_band_multi", imgs, flow, flow[..., 1], 2, -1.0, out, row0, n_in, lo, hi,
+                     staged):
+        sample_band_multi.launches += 1
+    return out
+
+
+sample_band_multi.launches = 0

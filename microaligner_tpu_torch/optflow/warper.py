@@ -4,7 +4,8 @@ PyTorch counterpart of ``microaligner_tpu/optflow/warper.py`` on its default
 (row-band) path.  A pixel pulls only from within its band's halo-expanded
 slab, so a displacement beyond ``overlap`` reads zeros, as in the
 reference's per-tile ``cv.remap``.  All sampling goes through K1, except
-:func:`warp_planes_tiled`, which pulls N planes by one flow through K5.
+:func:`warp_planes_tiled`, which pulls N planes by one flow through K5, one
+launch a band, typed in and out.
 """
 
 from __future__ import annotations
@@ -15,12 +16,9 @@ import numpy as np
 import torch
 
 from microaligner_tpu_torch.ops.filters import round_to_dtype
+from microaligner_tpu_torch.ops.kernel_sample import DTYPE_CODES, sample_band_multi
 from microaligner_tpu_torch.ops.pad import zero_pad
-from microaligner_tpu_torch.ops.warp import (
-    compose_flows_batched,
-    warp_planes_with_flow_parts,
-    warp_with_flow_parts_batched,
-)
+from microaligner_tpu_torch.ops.warp import compose_flows_batched, warp_with_flow_parts_batched
 from microaligner_tpu_torch.optflow.flow_calc import band_rows_for, band_slab
 from microaligner_tpu_torch.parallel import tile_map
 from microaligner_tpu_torch.tiles import TileGrid, pad_canvas, stitch_interiors, tile_origins
@@ -83,19 +81,21 @@ def warp_planes_tiled(imgs: torch.Tensor, flow: torch.Tensor, grid: TileGrid,
     per-band halo semantics of :func:`warp_tiled_dtype` for every plane: each
     band's slab of the zero canvas (padded to a whole number of bands) is
     pulled by the band's flow, which is zero on the halo.  One K5 launch a
-    band serves all N planes.
+    band (:func:`sample_band_multi`) reads the planes in their stored dtype
+    and writes the band's rounded rows into the output, so nothing but the
+    output is allocated.
     """
-    o = grid.overlap
-    h, w = grid.height, grid.width
+    if imgs.dtype != dtype or dtype not in DTYPE_CODES:
+        # K5 reads and writes one of its six dtypes: other pairs are warped as float32, then rounded
+        f32 = warp_planes_tiled(imgs.to(torch.float32), flow, grid, torch.float32, band_rows)
+        return round_to_dtype(f32, dtype)
+    imgs = imgs.contiguous()
+    flow = flow.to(torch.float32).contiguous()
+    h = grid.height
     rows = band_rows_for(grid, band_rows)
-    out = torch.empty((imgs.shape[0], h, w), dtype=dtype, device=imgs.device)
+    out = torch.empty((imgs.shape[0], h, grid.width), dtype=dtype, device=imgs.device)
     for row0 in range(0, h, rows):
-        n_in = min(rows, h - row0)
-        src = band_slab(imgs, row0, rows, o)
-        fx = zero_pad(flow[row0 : row0 + n_in, :, 0], o, rows - n_in + o, o, o)
-        fy = zero_pad(flow[row0 : row0 + n_in, :, 1], o, rows - n_in + o, o, o)
-        warped = warp_planes_with_flow_parts(src, fx, fy)
-        out[:, row0 : row0 + n_in] = round_to_dtype(warped[:, o : o + n_in, o : o + w], dtype)
+        sample_band_multi(imgs, flow, out, row0, rows, grid.overlap)
     return out
 
 

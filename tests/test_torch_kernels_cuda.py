@@ -13,7 +13,10 @@ K1, K2 and K4-K6 round at the same places, in the same order, as their
 plain versions (no FMA contraction), so their bars are upper bounds on what
 is expected to be bitwise equal: K1 atol 1e-5 on unit-range data, K2/K4
 1e-5 x max|plain| + 1e-6.  K5 is held to its plain version and to one K1
-launch per plane with no tolerance: it rounds as K1 does.  K6 is held bit
+launch per plane with no tolerance: it rounds as K1 does, in its staged
+branch (the tile's taps in shared memory) and its direct one; its band
+entry (the z-stack apply, stored dtypes in and out) is held bit for bit to
+its plain version and to ``_apply_flow_plane`` a plane.  K6 is held bit
 for bit to its plain version and to K2's expansions (the same moments5
 device function), and K1's row window bit for bit to the plain version's.
 
@@ -241,11 +244,92 @@ def test_apply_flow_planes_multi_equals_per_plane_on_card(gen, dev):
     planes = torch.from_numpy(gen.integers(0, 65535, (3, 260, 300)).astype(np.uint16)).to(dev)
     flow = torch.from_numpy(((gen.random((260, 300, 2)) - 0.5) * 8).astype(np.float32)).to(dev)
     grid = TileGrid.for_image((260, 300), 120, 20)
-    launches = kernel_sample.sample_displaced_multi.launches
+    launches = kernel_sample.sample_band_multi.launches
     multi = _apply_flow_planes(planes, flow, grid, torch.uint16, band_rows=64)
-    assert kernel_sample.sample_displaced_multi.launches == launches + 5  # one a band
+    assert kernel_sample.sample_band_multi.launches == launches + 5  # one a band
     single = torch.stack([_apply_flow_plane(p, flow, grid, torch.uint16, band_rows=64) for p in planes])
     assert multi.dtype == torch.uint16 and torch.equal(multi, single)
+
+
+def _smooth_flow(h, w, dev, amp=2.0):
+    """The z-stack apply's kind of flow: (amp sin(y / 50), 0.75 amp cos(x / 45))."""
+    ys = torch.arange(h, device=dev, dtype=torch.float32).view(h, 1).expand(h, w)
+    xs = torch.arange(w, device=dev, dtype=torch.float32).view(1, w).expand(h, w)
+    return (amp * torch.sin(ys / 50)).contiguous(), (0.75 * amp * torch.cos(xs / 45)).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,kind", [
+    pytest.param(3, 300, 1001, "smooth", id="odd-width-4-byte-staging"),
+    pytest.param(2, 9, 45, "smooth", id="h9-w45"),
+    pytest.param(5, 260, 520, "smooth", id="aligned-width-5-planes"),
+    pytest.param(2, 300, 1001, "shift", id="constant-shift-beyond-the-tile"),
+    pytest.param(2, 300, 1024, "mixed", id="half-staged-half-direct"),
+])
+def test_k5_staged_branch(gen, dev, n, h, w, kind):
+    """Tiles whose taps fit the staged window sum from shared memory, the
+    others gather from global memory; both equal the plain version and K1."""
+    imgs = torch.from_numpy(gen.random((n, h, w), dtype=np.float32)).to(dev)
+    fx, fy = _smooth_flow(h, w, dev)
+    if kind == "shift":
+        fx, fy = fx + 30.25, fy - 17.5
+    elif kind == "mixed":
+        noise = torch.from_numpy(((gen.random((2, h, w // 2)) - 0.5) * 40).astype(np.float32)).to(dev)
+        fx, fy = fx.clone(), fy.clone()
+        fx[:, w // 2 :], fy[:, w // 2 :] = noise[0], noise[1]
+    staged = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = kernel_sample.sample_displaced_multi(imgs, fx, fy, staged=staged)
+    tiles = -(-h // kernel_sample.K5_TILE[0]) * -(-w // kernel_sample.K5_TILE[1])
+    assert 0 < int(staged.item()) <= tiles
+    if kind == "mixed":
+        assert int(staged.item()) < tiles
+    assert torch.equal(got, kernel_sample.sample_displaced_multi_plain(imgs, fx, fy))
+    per_plane = kernel_sample.sample_displaced(imgs, fx.expand(n, h, w).contiguous(),
+                                               fy.expand(n, h, w).contiguous())
+    assert torch.equal(got, per_plane)
+
+
+def _stack(gen, name, n, h, w):
+    base = gen.integers(0, 65535, (n, h, w))
+    return {"uint8": base % 256, "int8": base % 256 - 128, "uint16": base, "int16": base - 32768,
+            "int32": (base - 32768) * 65535, "float32": base / 65535.0}[name].astype(name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["uint8", "int8", "uint16", "int16", "int32", "float32"])
+@pytest.mark.parametrize("w,amp", [(301, 2.0), (304, 2.0), (304, 30.0)])
+def test_band_entry_on_card(gen, dev, name, w, amp):
+    """The z-stack apply, one K5 launch a band of 64 rows (the last band 4
+    rows), against the band entry's plain version and K1 a plane; widths
+    with 4-byte and 16-byte staging loads, and a flow beyond the overlap."""
+    h, dt = 260, getattr(torch, name)
+    imgs = torch.from_numpy(_stack(gen, name, 3, h, w)).to(dev)
+    fx, fy = _smooth_flow(h, w, dev, amp)
+    flow = torch.stack([fx, fy], dim=-1).contiguous()
+    grid = TileGrid.for_image((h, w), 120, 20)
+    launches = kernel_sample.sample_band_multi.launches
+    got = _apply_flow_planes(imgs, flow, grid, dt, band_rows=64)
+    torch.cuda.synchronize()
+    assert kernel_sample.sample_band_multi.launches == launches + 5 and got.dtype == dt
+    want = torch.empty_like(got)
+    for row0 in range(0, h, 64):
+        kernel_sample.sample_band_multi_plain(imgs, flow, want, row0, 64, 20)
+    assert torch.equal(got, want)
+    assert torch.equal(got, torch.stack([_apply_flow_plane(p, flow, grid, dt, band_rows=64) for p in imgs]))
+
+
+@pytest.mark.cuda
+def test_apply_mixed_dtypes_on_card(gen, dev):
+    """u16 planes into float32 and float32 planes into u16: warped as
+    float32 through the band entry, then rounded; equal to K1 a plane."""
+    h, w = 70, 300
+    flow = torch.stack(_smooth_flow(h, w, dev), dim=-1).contiguous()
+    grid = TileGrid.for_image((h, w), 120, 20)
+    for src, dst in ((torch.uint16, torch.float32), (torch.float32, torch.uint16)):
+        imgs = torch.from_numpy(_stack(gen, "uint16", 2, h, w).astype(np.float32)).to(dev).to(src)
+        got = _apply_flow_planes(imgs, flow, grid, dst, band_rows=64)
+        want = torch.stack([_apply_flow_plane(p, flow, grid, dst, band_rows=64) for p in imgs])
+        assert got.dtype == dst and torch.equal(got, want)
 
 
 @pytest.mark.cuda
