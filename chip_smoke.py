@@ -41,10 +41,13 @@ Run it from the repository root; it needs one card and takes no arguments.  Phas
    and one 4096^2 register under torch.profiler (device time by kernel and
    the device's busy share; the table goes to ``chiprun_out/``);
 5. z-stack apply: 8 4096^2 planes warped by one flow through
-   ``_apply_flow_planes`` (one K5 launch a band, the stored dtype in and
-   out) as u16, u8, i16 and f32 stacks, each bit for bit equal to
-   ``_apply_flow_plane`` on each plane (K1); the u16 apply is timed against
-   its bytes bound;
+   ``_apply_flow_planes`` (one K5 launch a band, ``sample_band_multi``,
+   the stored dtype in and out) as u16, u8, i16 and f32 stacks, each bit
+   for bit equal to the band entry's plain version and to
+   ``_apply_flow_plane`` on each plane (K1); the band entry is timed on the
+   u16 stack against its plain version and its bytes bound (the numbers of
+   K5's entry in the ``kernels`` line, since every K5 launch of the paths is
+   this wrapper's) and on the f32 stack against ``F.grid_sample``;
 6. the CLI: that 4096^2 stack written as an OME CycleStack and run through
    ``microaligner_tpu_torch.__main__.main`` in process and once more as
    ``python -m microaligner_tpu_torch``; then a 2-cycle x 2-channel 20480^2
@@ -459,14 +462,17 @@ def check_k5(dev, rng, planes=((8,) + BAND_SHAPES[0], (2,) + BAND_SHAPES[1])) ->
     that took the staged branch (the others gather from global memory).
     The band slabs are timed under two flows, in this order: a +-20 px
     random flow (a stress reading: no tile's taps fit the staged window)
-    and the smooth flow of the z-stack apply (what the system produces; its
-    times are the ones the ``kernels`` line reports).  The edge shapes (H <
-    16, an odd width, which takes 4-byte staging loads) run both flows."""
+    and the smooth flow of the z-stack apply (what the system produces).
+    The z-stack apply times the band entry, which the ``kernels`` line
+    reports; these times of the float32 entry stay in the report.  The edge shapes (H <
+    16 with rows on 16 bytes or not, an odd width: rows not on 16 bytes take
+    the direct branch) run both flows."""
     from microaligner_tpu_torch.ops import kernel_sample as ks
 
     res = {"max_abs_err": 0.0, "staged_share": {}}
     cases = [(n, h, w, label, flow, True) for n, h, w, label in planes for flow in ("random", "smooth")]
-    cases += [(3, h, w, label, flow, False) for h, w, label in EDGE_SHAPES for flow in ("random", "smooth")]
+    cases += [(3, h, w, label, flow, False) for h, w, label in EDGE_SHAPES + ((9, 48, "H<16, rows on 16 B"),)
+              for flow in ("random", "smooth")]
     for n, h, w, label, flow_kind, timed in cases:
         imgs = torch.from_numpy(rng.random((n, h, w), dtype=np.float32)).to(dev)
         if flow_kind == "random":
@@ -886,11 +892,16 @@ ZSTACK_DTYPES = (torch.uint16, torch.uint8, torch.int16, torch.float32)  # u16: 
 def zstack_apply(dev, rng, counters: Counters, n=4096, n_planes=8, tile=1000, overlap=100) -> dict:
     """Config 4 of the JAX package's bench (``bench.py::bench_zstack_apply``):
     8 4096^2 planes on the card warped by one flow through
-    ``_apply_flow_planes``, one K5 launch a band that reads the stored
-    planes and writes the rounded result, for u16 (the bench's), u8, i16 and
-    f32 stacks; each held bit for bit against ``_apply_flow_plane`` on each
-    plane (K1).  The u16 apply is timed against the per-plane path and its
-    bound (stored planes read once and written once, the flow read once)."""
+    ``_apply_flow_planes``, one K5 launch a band (``sample_band_multi``)
+    that reads the stored planes and writes the rounded result, for u16
+    (the bench's), u8, i16 and f32 stacks; each held bit for bit against
+    the band entry's plain version on the card and ``_apply_flow_plane`` on
+    each plane (K1).  Every K5 launch of the paths is this wrapper's, so
+    K5's entry of the ``kernels`` line is its u16 launches, timed here
+    against the plain version and against the bound (stored planes read
+    once and written once, the flow read once); the f32 stack's launches
+    are timed against ``F.grid_sample`` on the same planes."""
+    from microaligner_tpu_torch.ops import kernel_sample as ks
     from microaligner_tpu_torch.optflow.flow_calc import band_rows_for
     from microaligner_tpu_torch.pipeline.runner import _apply_flow_plane, _apply_flow_planes
     from microaligner_tpu_torch.tiles import TileGrid
@@ -902,10 +913,16 @@ def zstack_apply(dev, rng, counters: Counters, n=4096, n_planes=8, tile=1000, ov
     del wide
     flow = torch.stack(smooth_flow(n, n, dev), dim=-1).contiguous()
     grid = TileGrid.for_image((n, n), tile, overlap)
-    bands = -(-n // band_rows_for(grid))
+    rows = band_rows_for(grid)
+    bands = -(-n // rows)
 
     def per_plane(planes, dt):
         return torch.stack([_apply_flow_plane(p, flow, grid, dt) for p in planes])
+
+    def band_entry(fn, planes, out):
+        for row0 in range(0, n, rows):
+            fn(planes, flow, out, row0, rows, overlap)
+        return out
 
     counters.reset()
     outs = {dt: _apply_flow_planes(planes, flow, grid, dt) for dt, planes in stacks.items()}
@@ -914,28 +931,49 @@ def zstack_apply(dev, rng, counters: Counters, n=4096, n_planes=8, tile=1000, ov
     require(launches["K1"] == 0, f"zstack: the z-stack apply launched K1 {launches['K1']} times")
     require(launches["K5"] == bands * len(stacks),
             f"zstack: {launches['K5']} K5 launches for {len(stacks)} stacks of {bands} band(s)")
+    err = 0.0
     for dt, planes in stacks.items():
         multi = outs[dt]
         require(multi.dtype == dt and multi.shape == planes.shape, f"{multi.dtype} {tuple(multi.shape)}")
+        want = band_entry(ks.sample_band_multi_plain, planes, torch.empty_like(planes))
+        err = max(err, float((multi.to(torch.float64) - want.to(torch.float64)).abs().max()))
+        require(torch.equal(multi, want), f"z-stack apply, {dt}: K5 and its plain version differ")
+        del want
         require(torch.equal(multi, per_plane(planes, dt)), f"z-stack apply, {dt}: K5 and K1 a plane differ")
     del outs
     res = {"launches": launches, "bands": bands, "apply_ms": {}}
     for dt, planes in stacks.items():
         res["apply_ms"][str(dt)] = min(cuda_ms(lambda: _apply_flow_planes(planes, flow, grid, dt), 5)
                                        for _ in range(2))
-    # u16, order per-plane, K5, K5, per-plane
-    planes = stacks[torch.uint16]
-    t1 = cuda_ms(lambda: per_plane(planes, torch.uint16), 5)
-    m1 = cuda_ms(lambda: _apply_flow_planes(planes, flow, grid, torch.uint16), 5)
-    m2 = cuda_ms(lambda: _apply_flow_planes(planes, flow, grid, torch.uint16), 5)
-    t2 = cuda_ms(lambda: per_plane(planes, torch.uint16), 5)
-    nbytes = n_planes * n * n * 2 * 2 + 8 * n * n
-    res.update(multi_ms=min(m1, m2), per_plane_ms=min(t1, t2), bound_ms=1e3 * nbytes / H100_BYTES_PER_S)
+    # u16: order plain, K5, per-plane, K5, per-plane, plain
+    planes, out = stacks[torch.uint16], torch.empty_like(stacks[torch.uint16])
+    p1 = cuda_ms(lambda: band_entry(ks.sample_band_multi_plain, planes, out), 3)
+    k_1, t1 = cuda_ms(lambda: band_entry(ks.sample_band_multi, planes, out), 20), cuda_ms(
+        lambda: per_plane(planes, torch.uint16), 5)
+    k_2, t2 = cuda_ms(lambda: band_entry(ks.sample_band_multi, planes, out), 20), cuda_ms(
+        lambda: per_plane(planes, torch.uint16), 5)
+    p2 = cuda_ms(lambda: band_entry(ks.sample_band_multi_plain, planes, out), 3)
+    # f32 stack against grid_sample on the same planes (a pull: taps at p - flow)
+    planes, out = stacks[torch.float32], torch.empty_like(stacks[torch.float32])
+    f32_ms = cuda_ms(lambda: band_entry(ks.sample_band_multi, planes, out), 20)
+    grid_s = sample_grid(-flow[None, ..., 0], -flow[None, ..., 1])
+    lib_f32 = cuda_ms(lambda: grid_sample_call(planes[None], grid_s), 20)
+    del grid_s, out
+    px = n * n
+    # K5's operations a plane and output (kernel_bounds), the taps' 4 conversions and the rounding's 3
+    nbytes, ops = n_planes * px * 2 * 2 + 8 * px, (20 * n_planes + 4) * px
+    tb, tf = 1e3 * nbytes / H100_BYTES_PER_S, 1e3 * ops / H100_F32_FLOPS
+    res["band_entry"] = {"max_abs_err": err, "ms": min(k_1, k_2), "plain_ms": min(p1, p2),
+                         "bound_ms": max(tb, tf), "bound_by": "bytes" if tb >= tf else "operations",
+                         "library_ms": None, "f32_ms": f32_ms, "f32_library_ms": lib_f32}
+    res["per_plane_ms"] = min(t1, t2)
+    b = res["band_entry"]
     log(f"[zstack] {n_planes} u16 {n}^2 planes, one flow, tile {tile} overlap {overlap}, {bands} band(s): "
-        f"_apply_flow_planes (K5) {res['multi_ms']:.4f} ms ({100 * res['bound_ms'] / res['multi_ms']:.0f}% of its "
-        f"{res['bound_ms']:.4f} ms bound, bytes), _apply_flow_plane a plane (K1) {res['per_plane_ms']:.3f} ms; "
-        f"u8, i16, f32 stacks {', '.join(f'{v:.4f}' for v in list(res['apply_ms'].values())[1:])} ms; "
-        f"all bit-equal to K1 a plane")
+        f"sample_band_multi (K5) {b['ms']:.4f} ms ({100 * b['bound_ms'] / b['ms']:.0f}% of its "
+        f"{b['bound_ms']:.4f} ms bound, {b['bound_by']}), plain {b['plain_ms']:.3f} ms, _apply_flow_plane a plane "
+        f"(K1) {res['per_plane_ms']:.3f} ms; _apply_flow_planes u16, u8, i16, f32 "
+        f"{', '.join(f'{v:.4f}' for v in res['apply_ms'].values())} ms; f32 stack's band entry {f32_ms:.4f} ms, "
+        f"grid_sample {lib_f32:.4f} ms; all bit-equal to the plain version and to K1 a plane")
     return res
 
 
@@ -1496,6 +1534,9 @@ def main():
     report["main"], stack_planes = main_path(dev, rng, out_dir, counters)
     report["unpaired"] = unpaired_route(dev, rng, counters, stack_planes)
     report["zstack"] = zstack_apply(dev, rng, counters)
+    # every K5 launch of the paths is the band entry's: its line reports that wrapper (u16, the bench's
+    # stack), and the float32 entry's numbers stay in the report
+    kernels["K5"] = {"f32_entry": kernels["K5"], **report["zstack"]["band_entry"]}
     work = Path(tempfile.mkdtemp(prefix="ma_chip_smoke_4k_"))
     try:
         report["cli_4096"] = cli_4096(dev, stack_planes, counters, work)
@@ -1518,7 +1559,7 @@ def main():
                "K2": ("poly_pair_m", "poly.cu", "microaligner_tpu/ops/pallas_poly.py:172"),
                "K3": ("smooth5_solve", "agg.cu", "microaligner_tpu/ops/pallas_agg.py:160"),
                "K4": ("update_matrices", "matrices.cu", "microaligner_tpu/ops/pallas_matrices.py:63"),
-               "K5": ("sample_displaced_multi", "sample.cu", "microaligner_tpu/ops/pallas_sample.py:183"),
+               "K5": ("sample_band_multi", "sample.cu", "microaligner_tpu/ops/pallas_sample.py:183"),
                "K6": ("poly_exp5", "poly.cu", "microaligner_tpu/ops/pallas_poly.py:83")}
     # each path's launches, counted from 0 just before it and read just after
     paths = ("main", "unpaired", "zstack", "cli_4096", "cli_20480", "feature", "chained_4096",

@@ -80,10 +80,10 @@ __global__ void sample_displaced_kernel(const float* __restrict__ img,
 //   then reduces its taps to a bounding box.  If the box lies in that window
 //   (a flow within about 2 rows and 8 columns), the ring goes on from it; else, if the
 //   box fits a window, the ring restarts at the box (a larger or uniform
-//   shift).  Where the row stride is not a multiple of 16 bytes, the window
-//   is staged value by value, plane by plane.
+//   shift).
 // - Direct branch: where the box does not fit (a flow that tears the tile
-//   apart), the block gathers its taps from global memory, K1's way.
+//   apart), or where the row stride is not a multiple of 16 bytes, the
+//   block gathers its taps from global memory, K1's way.
 //   Both branches round as K1 does, so every plane equals a K1 launch on it
 //   bit for bit.
 // - Typed in and out: the planes may be stored as u8, i8, u16, i16, i32 or
@@ -287,32 +287,6 @@ __device__ __forceinline__ void ring_planes(const Args& a, const Taps& t, int ti
   }
 }
 
-// The staged branch where 16-byte copies do not fit the row stride: each
-// plane's window (nrow x ncol) is staged value by value, then summed.
-template <typename Tin, typename Tout>
-__device__ __forceinline__ void staged_planes_by_value(const Args& a, const Taps& t, int tid, int out0,
-                                                       int wy0, int wx0, int nrow, int ncol,
-                                                       unsigned char* smem) {
-  const Tin* __restrict__ img = static_cast<const Tin*>(a.img);
-  Tout* __restrict__ out = static_cast<Tout*>(a.out);
-  const size_t plane = static_cast<size_t>(a.h) * a.w;
-  int off[kOut];
-  window_offsets(t, wy0, wx0, off);
-  Tin* buf = reinterpret_cast<Tin*>(smem);
-  for (int k = 0; k < a.n; ++k) {
-    const Tin* src = img + k * plane;
-    for (int e = tid; e < nrow * ncol; e += kThreads) {
-      const int r = e / ncol, c = e % ncol;
-      const int sr = wy0 + r, sc = wx0 + c;
-      const bool ok = sr >= a.lo && sr < a.hi && sc >= 0 && sc < a.w;
-      buf[r * kWinW + c] = ok ? src[sr * a.w + sc] : Tin{};
-    }
-    __syncthreads();
-    sum_window(a, t, off, buf, out + k * plane, out0);
-    __syncthreads();
-  }
-}
-
 template <typename Tin, typename Tout>
 __device__ __forceinline__ void direct_planes(const Args& a, const Taps& t, int out0) {
   const Tin* __restrict__ img = static_cast<const Tin*>(a.img);
@@ -383,9 +357,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sample_multi_kernel(cons
       cp_async_commit();
     }
   }
-  if (tid == 0) {
-    box[0] = INT_MAX, box[1] = INT_MIN, box[2] = INT_MAX, box[3] = INT_MIN;
-  }
   int minx = INT_MAX, maxx = INT_MIN, miny = INT_MAX, maxy = INT_MIN;
 #pragma unroll
   for (int o = 0; o < kOut; ++o) {
@@ -401,6 +372,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sample_multi_kernel(cons
     minx = min(minx, t.xi[o]), maxx = max(maxx, t.xi[o]);
     miny = min(miny, t.yi[o]), maxy = max(maxy, t.yi[o]);
   }
+  const int out0 = (a.row0 + y0) * a.w + x0;  // this thread's first output in a plane
+  if (!vec) {  // 16-byte copies do not fit the row stride
+    direct_planes<Tin, Tout>(a, t, out0);
+    return;
+  }
+  if (tid == 0) {
+    box[0] = INT_MAX, box[1] = INT_MIN, box[2] = INT_MAX, box[3] = INT_MIN;
+  }
   minx = __reduce_min_sync(0xffffffffu, minx), maxx = __reduce_max_sync(0xffffffffu, maxx);
   miny = __reduce_min_sync(0xffffffffu, miny), maxy = __reduce_max_sync(0xffffffffu, maxy);
   __syncthreads();  // box initialised
@@ -410,30 +389,21 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sample_multi_kernel(cons
   }
   __syncthreads();
   // the taps span columns [box0, box1 + 1] and rows [box2, box3 + 1]
-  const int out0 = (a.row0 + y0) * a.w + x0;  // this thread's first output in a plane
   const bool staged_counted = a.staged != nullptr && tid == 0;
-  if (vec && box[0] >= sx0 && box[1] + 1 < sx0 + Span<Tin>::kCols && box[2] >= sy0 &&
-      box[3] + 1 < sy0 + kWinH) {
+  if (box[0] >= sx0 && box[1] + 1 < sx0 + Span<Tin>::kCols && box[2] >= sy0 && box[3] + 1 < sy0 + kWinH) {
     if (staged_counted) atomicAdd(a.staged, 1u);
     ring_planes<Tin, Tout>(a, t, tid, out0, sy0, sx0, kWinH, kStages - 1, smem);
     return;
   }
-  if (vec) {  // the speculation missed: let its copies land before the slots are reused
-    cp_async_wait<0>();
-    __syncthreads();
-  }
-  const int wx0 = vec ? (box[0] & -Span<Tin>::V) : box[0];
+  cp_async_wait<0>();  // the speculation missed: let its copies land before the slots are reused
+  __syncthreads();
+  const int wx0 = box[0] & -Span<Tin>::V;
   const int wy0 = box[2];
   const long long span_x = static_cast<long long>(box[1]) + 2 - wx0;
   const long long span_y = static_cast<long long>(box[3]) + 2 - wy0;
   if (span_x <= Span<Tin>::kCols && span_y <= kWinH) {
     if (staged_counted) atomicAdd(a.staged, 1u);
-    if (vec) {
-      ring_planes<Tin, Tout>(a, t, tid, out0, wy0, wx0, static_cast<int>(span_y), 0, smem);
-    } else {
-      staged_planes_by_value<Tin, Tout>(a, t, tid, out0, wy0, wx0, static_cast<int>(span_y),
-                                        static_cast<int>(span_x), smem);
-    }
+    ring_planes<Tin, Tout>(a, t, tid, out0, wy0, wx0, static_cast<int>(span_y), 0, smem);
   } else {
     direct_planes<Tin, Tout>(a, t, out0);
   }

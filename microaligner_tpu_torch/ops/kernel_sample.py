@@ -181,7 +181,8 @@ def _launch_multi(name, imgs, fx, fy, fstride, fsign, out, row0, rows, lo, hi, s
     if n == 0 or rows == 0 or w == 0:
         return False
     cuda_lib.check_grid(name, 1, -(-rows // K5_TILE[0]))
-    # 16-byte loads of the staged windows need a row stride and a base on 16 bytes
+    # the staged windows' 16-byte copies need a row stride and a base on 16 bytes; without
+    # them every tile gathers from global memory (the direct branch)
     vec = (w * imgs.element_size()) % 16 == 0 and imgs.data_ptr() % 16 == 0
     cuda_lib.call("ma_sample_multi", imgs.device, imgs, fx, fy, fstride, fsign, out, n, h, w,
                   row0, rows, lo, hi, DTYPE_CODES[imgs.dtype], int(vec), staged)

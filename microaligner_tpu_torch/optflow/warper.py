@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from microaligner_tpu_torch.ops.filters import round_to_dtype
-from microaligner_tpu_torch.ops.kernel_sample import DTYPE_CODES, sample_band_multi
+from microaligner_tpu_torch.ops.kernel_sample import DTYPE_CODES, band_bounds, sample_band_multi
 from microaligner_tpu_torch.ops.pad import zero_pad
 from microaligner_tpu_torch.ops.warp import compose_flows_batched, warp_with_flow_parts_batched
 from microaligner_tpu_torch.optflow.flow_calc import band_rows_for, band_slab
@@ -83,19 +83,25 @@ def warp_planes_tiled(imgs: torch.Tensor, flow: torch.Tensor, grid: TileGrid,
     pulled by the band's flow, which is zero on the halo.  One K5 launch a
     band (:func:`sample_band_multi`) reads the planes in their stored dtype
     and writes the band's rounded rows into the output, so nothing but the
-    output is allocated.
+    output is allocated.  Other pairs of stored and output dtype go through
+    the kernel's float32 instantiation one band's slab at a time, then are
+    rounded: one slab of float32 planes and its result live at once.
     """
-    if imgs.dtype != dtype or dtype not in DTYPE_CODES:
-        # K5 reads and writes one of its six dtypes: other pairs are warped as float32, then rounded
-        f32 = warp_planes_tiled(imgs.to(torch.float32), flow, grid, torch.float32, band_rows)
-        return round_to_dtype(f32, dtype)
-    imgs = imgs.contiguous()
     flow = flow.to(torch.float32).contiguous()
-    h = grid.height
+    h, o = grid.height, grid.overlap
     rows = band_rows_for(grid, band_rows)
     out = torch.empty((imgs.shape[0], h, grid.width), dtype=dtype, device=imgs.device)
+    typed = imgs.dtype == dtype and dtype in DTYPE_CODES
+    if typed:
+        imgs = imgs.contiguous()
     for row0 in range(0, h, rows):
-        sample_band_multi(imgs, flow, out, row0, rows, grid.overlap)
+        if typed:
+            sample_band_multi(imgs, flow, out, row0, rows, o)
+            continue
+        n_in, lo, hi = band_bounds(h, row0, rows, o)
+        slab = imgs[:, lo:hi].to(torch.float32).contiguous()
+        warped = sample_band_multi(slab, flow[lo:hi].contiguous(), torch.empty_like(slab), row0 - lo, rows, o)
+        out[:, row0 : row0 + n_in] = round_to_dtype(warped[:, row0 - lo : row0 - lo + n_in], dtype)
     return out
 
 

@@ -1,33 +1,25 @@
 #!/usr/bin/env python3
 """K5 alone on one NVIDIA GPU: build it, check it and time it, with the
-z-stack apply around it.
+z-stack apply around it, through ``chip_smoke.py``'s own phases.
 
-    python3 scripts/k5_chip.py [--root DIR] [--label NAME] [--check] [--variant kCols=4,kRows=1,...]
+    python3 scripts/k5_chip.py [--root DIR] [--label NAME]
 
 ``--root`` is the checkout whose port is measured (default: this script's
 repository), so that two commits can be timed in one run on one card:
 unpack the other with ``git archive`` into a git-ignored directory and run
-parent, change, change, parent.  The run prints K5's registers and spills
-from ``nvcc -Xptxas -v``, then, at the band slabs of ``chip_smoke.py`` (8
-planes of 4296^2, 2 of 1256 x 20680) under the random +-20 px flow and the
-z-stack apply's smooth flow: K5's time (CUDA events, best of two runs of
-20 calls), its share of tiles that took the staged branch (where the
-checkout's K5 counts them), its bound and ``F.grid_sample``'s time; then
-the z-stack apply of 8 u16 4096^2 planes.  ``--check`` first holds K5 bit
-for bit against its plain version and one K1 launch a plane, and the band
-entry against its plain version and ``_apply_flow_plane`` for the six
-dtypes.  ``--variant`` builds a copy of ``csrc/`` with some of K5's
-``constexpr int`` constants in ``sample.cu`` replaced (a design step to
-time; nothing else changes).  The numbers go to
-``chiprun_out/k5_chip_<label>.json``.
+parent, change, change, parent, one process each.  The run takes that
+checkout's ``chip_smoke.py``: K5's registers and spills
+(``k5_build_lines``), K5 against its plain version and K1 and timed at the
+band slabs under the random and the smooth flow (``check_k5``), and the
+z-stack apply (``zstack_apply``) of 8 planes of 4096^2 and of 4100^2, a
+width whose rows of u8, u16 and i16 planes are not on 16 bytes.  The
+numbers go to ``chiprun_out/k5_chip_<label>.json``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import re
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -36,158 +28,34 @@ import numpy as np
 import torch
 
 
-def ptxas_k5(ptxas: str) -> list[str]:
-    """One line for each of K5's kernels: its template arguments (mangled),
-    registers, spill bytes and shared memory."""
-    lines = ptxas.splitlines()
-    out = []
-    for i, line in enumerate(lines):
-        found = re.search(r"Compiling entry function '\w*?(sample_(displaced_)?multi_kernel\w*?)E", line)
-        if found:
-            text = " ".join(lines[i + 1 : i + 4])
-            regs = re.search(r"Used (\d+) registers", text)
-            smem = re.search(r"(\d+) bytes smem", text)
-            spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill", text))
-            out.append(f"{found.group(1)}: {regs.group(1) if regs else '?'} registers, {spills} spill bytes, "
-                       f"{smem.group(1) if smem else 0} B smem")
-    return out
-
-
-def use_variant(spec: str, cuda_lib, ks) -> None:
-    """Point the build at a copy of ``csrc/`` whose ``sample.cu`` has the
-    constants of ``spec`` ("kCols=4,kRows=1") replaced."""
-    import shutil
-    import tempfile
-
-    work = Path(tempfile.mkdtemp(prefix="k5_variant_"))
-    shutil.copytree(cuda_lib.CSRC, work / "csrc")
-    text = (work / "csrc" / "sample.cu").read_text()
-    for item in spec.split(","):
-        key, value = item.split("=")
-        text, count = re.subn(rf"\b{key} = \d+", f"{key} = {int(value)}", text)
-        if count != 1:
-            raise SystemExit(f"k5_chip: {key} is not one constant of sample.cu")
-    (work / "csrc" / "sample.cu").write_text(text)
-    const = {k: int(v) for k, v in re.findall(r"\b(k[A-Z]\w*) = (\d+)", text)}
-    ks.K5_TILE = (const["kWarps"] * const["kRows"], const["kLanes"] * const["kCols"])
-    cuda_lib.CSRC, cuda_lib.BUILD_DIR = work / "csrc", work / "_build"
-
-
-def check(dev, rng, ks, cs) -> None:
-    """Bit-equality of the f32 entry (both branches, odd width, H < 16) and
-    of the band entry for every dtype, with a ragged last band."""
-    from microaligner_tpu_torch.optflow.warper import warp_planes_tiled
-    from microaligner_tpu_torch.pipeline.runner import _apply_flow_plane
-    from microaligner_tpu_torch.tiles import TileGrid
-
-    for n, h, w in ((8, 4296, 4296), (2, 1256, 20680), (3, 9, 45), (3, 37, 1001), (2, 300, 517)):
-        for kind in ("random", "smooth"):
-            imgs = torch.from_numpy(rng.random((n, h, w), dtype=np.float32)).to(dev)
-            if kind == "random":
-                f = torch.from_numpy(((rng.random((2, h, w)) - 0.5) * 40).astype(np.float32)).to(dev)
-                fx, fy = f[0].contiguous(), f[1].contiguous()
-            else:
-                fx, fy = cs.smooth_flow(h, w, dev)
-            staged = torch.zeros(1, dtype=torch.int32, device=dev)
-            got = ks.sample_displaced_multi(imgs, fx, fy, staged=staged)
-            want = ks.sample_displaced_multi_plain(imgs, fx, fy)
-            k1 = torch.stack([ks.sample_displaced(imgs[i : i + 1], fx[None], fy[None])[0] for i in range(n)])
-            ok = torch.equal(got, want) and torch.equal(got, k1)
-            print(f"[check] f32 {n}x{h}x{w} {kind}: staged tiles {int(staged.item())}, "
-                  f"max err {float((got - want).abs().max()):.3e}, bit-equal {ok}", flush=True)
-            if not ok:
-                raise SystemExit("K5 differs from its plain version or from K1")
-    h, w = 260, 301
-    grid = TileGrid.for_image((h, w), 120, 20)
-    base = rng.integers(0, 65535, (3, h, w))
-    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
-    for amp in (2.0, 30.0):
-        flow = torch.from_numpy(np.stack([amp * np.sin(ys / 17), 0.7 * amp * np.cos(xs / 23)],
-                                         axis=-1).astype(np.float32)).to(dev)
-        for dt, planes in (("uint8", base % 256), ("int8", base % 256 - 128), ("uint16", base),
-                           ("int16", base - 32768), ("int32", (base - 32768) * 65535),
-                           ("float32", base / 65535.0)):
-            tdt = getattr(torch, dt)
-            imgs = torch.from_numpy(planes.astype(dt)).to(dev)
-            got = warp_planes_tiled(imgs, flow, grid, tdt, band_rows=64)
-            want = torch.empty_like(got)
-            for row0 in range(0, h, 64):
-                ks.sample_band_multi_plain(imgs, flow, want, row0, 64, 20)
-            per = torch.stack([_apply_flow_plane(p, flow, grid, tdt, band_rows=64) for p in imgs])
-            ok = torch.equal(got, want) and torch.equal(got, per)
-            print(f"[check] band {dt} amp {amp}: bit-equal to plain and K1 a plane {ok}", flush=True)
-            if not ok:
-                raise SystemExit(f"band entry {dt} differs")
-
-
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent))
     ap.add_argument("--label", default="change")
-    ap.add_argument("--check", action="store_true")
-    ap.add_argument("--variant", default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("k5_chip: needs an NVIDIA GPU")
     sys.path.insert(0, str(Path(args.root).resolve()))
     import chip_smoke as cs
-    from microaligner_tpu_torch.ops import cuda_lib, kernel_sample as ks
-    from microaligner_tpu_torch.pipeline.runner import _apply_flow_planes
-    from microaligner_tpu_torch.tiles import TileGrid
+    from microaligner_tpu_torch.ops import cuda_lib
 
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip()
-    if args.variant:
-        use_variant(args.variant, cuda_lib, ks)
+    res = {"label": args.label, "root": args.root, "device": cs.nvidia_smi()}
     t0 = time.perf_counter()
     _, ptxas = cuda_lib.build(verbose=True)
     cuda_lib.library()
-    res = {"label": args.label, "root": args.root, "variant": args.variant, "device": smi,
-           "build_s": time.perf_counter() - t0, "ptxas": ptxas_k5(ptxas)}
-    print(f"[build] {res['build_s']:.1f} s, variant {args.variant or 'none'}", flush=True)
-    for line in res["ptxas"]:
-        print(f"[build] {line}", flush=True)
+    res["build_s"] = time.perf_counter() - t0
+    res["k5_build"] = cs.k5_build_lines(ptxas)
     rng = np.random.default_rng(20261016)
-    if args.check:
-        check(dev, rng, ks, cs)
-    counts = "staged" in ks.sample_displaced_multi.__code__.co_varnames
-    for n, h, w in ((8, 4296, 4296), (2, 1256, 20680)):
-        imgs = torch.from_numpy(rng.random((n, h, w), dtype=np.float32)).to(dev)
-        for kind in ("random", "smooth"):
-            if kind == "random":
-                f = torch.from_numpy(((rng.random((2, h, w)) - 0.5) * 40).astype(np.float32)).to(dev)
-                fx, fy = f[0].contiguous(), f[1].contiguous()
-                del f
-            else:
-                fx, fy = cs.smooth_flow(h, w, dev)
-            share = None
-            if counts:
-                staged = torch.zeros(1, dtype=torch.int32, device=dev)
-                ks.sample_displaced_multi(imgs, fx, fy, staged=staged)
-                share = int(staged.item()) / (-(-h // ks.K5_TILE[0]) * -(-w // ks.K5_TILE[1]))
-            ms = min(cs.cuda_ms(lambda: ks.sample_displaced_multi(imgs, fx, fy), 20) for _ in range(2))
-            grid = cs.sample_grid(fx[None], fy[None])
-            lib = min(cs.cuda_ms(lambda: cs.grid_sample_call(imgs[None], grid), 20) for _ in range(2))
-            del grid
-            bound = cs.kernel_bounds(h, w, planes=n)["K5"][0]
-            key = f"{n}x{h}x{w} {kind}"
-            res[key] = {"ms": ms, "grid_sample_ms": lib, "bound_ms": bound, "staged_share": share}
-            print(f"[time] K5 {key}: {ms:.4f} ms ({100 * bound / ms:.0f}% of {bound:.4f}), grid_sample "
-                  f"{lib:.4f} ms, staged share {share}", flush=True)
-        del imgs, fx, fy
-    n = 4096
-    planes = torch.from_numpy(rng.integers(0, 65535, (8, n, n)).astype(np.uint16)).to(dev)
-    flow = torch.stack(cs.smooth_flow(n, n, dev), dim=-1).contiguous()
-    grid = TileGrid.for_image((n, n), 1000, 100)
-    ms = min(cs.cuda_ms(lambda: _apply_flow_planes(planes, flow, grid, torch.uint16), 5) for _ in range(2))
-    bound = 1e3 * (8 * n * n * 4 + 8 * n * n) / cs.H100_BYTES_PER_S
-    res["apply_u16_8x4096"] = {"ms": ms, "bound_ms": bound}
-    print(f"[time] z-stack apply 8 u16 4096^2: {ms:.4f} ms ({100 * bound / ms:.0f}% of {bound:.4f})", flush=True)
+    res["k5"] = cs.check_k5(dev, rng)
+    counters = cs.Counters()
+    for n in (4096, 4100):
+        res[f"zstack_{n}"] = cs.zstack_apply(dev, rng, counters, n=n)
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
-    (out / f"k5_chip_{args.label}.json").write_text(json.dumps(res, indent=1))
-    print(json.dumps({k: v for k, v in res.items() if k != "ptxas"}))
+    (out / f"k5_chip_{args.label}.json").write_text(json.dumps(res, indent=1, default=str))
+    print(json.dumps({"label": args.label, "device": res["device"],
+                      **{k: res[k]["apply_ms"] for k in res if k.startswith("zstack_")}}, default=str))
     return 0
 
 

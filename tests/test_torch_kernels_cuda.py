@@ -260,15 +260,17 @@ def _smooth_flow(h, w, dev, amp=2.0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,h,w,kind", [
-    pytest.param(3, 300, 1001, "smooth", id="odd-width-4-byte-staging"),
+    pytest.param(3, 300, 1001, "smooth", id="odd-width-direct"),
     pytest.param(2, 9, 45, "smooth", id="h9-w45"),
+    pytest.param(2, 9, 48, "smooth", id="h9-w48"),
     pytest.param(5, 260, 520, "smooth", id="aligned-width-5-planes"),
-    pytest.param(2, 300, 1001, "shift", id="constant-shift-beyond-the-tile"),
+    pytest.param(2, 300, 1000, "shift", id="constant-shift-beyond-the-tile"),
     pytest.param(2, 300, 1024, "mixed", id="half-staged-half-direct"),
 ])
 def test_k5_staged_branch(gen, dev, n, h, w, kind):
     """Tiles whose taps fit the staged window sum from shared memory, the
-    others gather from global memory; both equal the plain version and K1."""
+    others gather from global memory, as do all tiles of planes whose rows
+    are not on 16 bytes; both branches equal the plain version and K1."""
     imgs = torch.from_numpy(gen.random((n, h, w), dtype=np.float32)).to(dev)
     fx, fy = _smooth_flow(h, w, dev)
     if kind == "shift":
@@ -280,7 +282,10 @@ def test_k5_staged_branch(gen, dev, n, h, w, kind):
     staged = torch.zeros(1, dtype=torch.int32, device=dev)
     got = kernel_sample.sample_displaced_multi(imgs, fx, fy, staged=staged)
     tiles = -(-h // kernel_sample.K5_TILE[0]) * -(-w // kernel_sample.K5_TILE[1])
-    assert 0 < int(staged.item()) <= tiles
+    if (w * 4) % 16:
+        assert int(staged.item()) == 0
+    else:
+        assert 0 < int(staged.item()) <= tiles
     if kind == "mixed":
         assert int(staged.item()) < tiles
     assert torch.equal(got, kernel_sample.sample_displaced_multi_plain(imgs, fx, fy))
@@ -301,7 +306,8 @@ def _stack(gen, name, n, h, w):
 def test_band_entry_on_card(gen, dev, name, w, amp):
     """The z-stack apply, one K5 launch a band of 64 rows (the last band 4
     rows), against the band entry's plain version and K1 a plane; widths
-    with 4-byte and 16-byte staging loads, and a flow beyond the overlap."""
+    whose rows are on 16 bytes (staged) or not (direct), and a flow beyond
+    the overlap."""
     h, dt = 260, getattr(torch, name)
     imgs = torch.from_numpy(_stack(gen, name, 3, h, w)).to(dev)
     fx, fy = _smooth_flow(h, w, dev, amp)
