@@ -107,7 +107,7 @@ ROOT = Path(__file__).resolve().parent
 # (one rounding) where the plain version multiplies and adds (two), so the two differ in the
 # last bits of every sum and K3 is held to 1e-4 px of flow, not bit for bit; it must also be
 # no further from a float64 run of the plain version than the float32 plain version is
-TOL = {"K1": "atol 1e-5", "K2": "1e-5*max|plain|+1e-6", "K3": "atol 1e-4 px", "K4": "1e-5*max|plain|+1e-6",
+TOL = {"K1": "0: bit-equal to its plain version", "K2": "1e-5*max|plain|+1e-6", "K3": "atol 1e-4 px", "K4": "1e-5*max|plain|+1e-6",
        "K5": "0: bit-equal to its plain version and to one K1 launch a plane",
        "K6": "0: bit-equal to its plain version and to K2's expansions"}
 # NVIDIA H100 SXM: HBM3 rate and float32 rate outside the tensor cores
@@ -165,16 +165,18 @@ def cuda_ms(fn, reps: int) -> float:
 class Counters:
     """The launch counters of every kernel wrapper and the call counters of
     their plain versions: ``reset()`` just before a path, ``read()`` just
-    after it.  K5 has two entries, the float32 one and the z-stack apply's
-    band entry; their counts are summed."""
+    after it.  K1's two entries, the float32 one and the one-plane band
+    warp's (``K1band``), are counted apart; K5's two entries, the float32
+    one and the z-stack apply's band entry, are summed."""
 
     def __init__(self):
         from microaligner_tpu_torch.ops import kernel_agg, kernel_matrices, kernel_poly, kernel_sample as ks
 
-        self.wrappers = {"K1": (ks.sample_displaced,), "K2": (kernel_poly.poly_pair_m,),
+        self.wrappers = {"K1": (ks.sample_displaced,), "K1band": (ks.sample_band,), "K2": (kernel_poly.poly_pair_m,),
                          "K3": (kernel_agg.smooth5_solve,), "K4": (kernel_matrices.update_matrices,),
                          "K5": (ks.sample_displaced_multi, ks.sample_band_multi), "K6": (kernel_poly.poly_exp5,)}
-        self.plains = {"K1": (ks.sample_displaced_plain,), "K2": (kernel_poly.poly_pair_m_plain,),
+        self.plains = {"K1": (ks.sample_displaced_plain,), "K1band": (ks.sample_band_plain,),
+                       "K2": (kernel_poly.poly_pair_m_plain,),
                        "K3": (kernel_agg.smooth5_solve_plain,), "K4": (kernel_matrices.update_matrices_plain,),
                        "K5": (ks.sample_displaced_multi_plain, ks.sample_band_multi_plain),
                        "K6": (kernel_poly.poly_exp5_plain,)}
@@ -186,6 +188,13 @@ class Counters:
                     fn.launches = 0
                 if hasattr(fn, "calls"):
                     fn.calls = 0
+
+    def snapshot(self) -> dict:
+        """Launches of each kernel's wrappers and calls of its plain versions
+        (``K1 plain`` ...) so far."""
+        got = {k: sum(w.launches for w in fns) for k, fns in self.wrappers.items()}
+        got.update({k + " plain": sum(f.calls for f in fns) for k, fns in self.plains.items()})
+        return got
 
     def read(self, path: str, kernels) -> dict:
         """Launches of every kernel since ``reset``; raises unless each of
@@ -373,15 +382,12 @@ def check_kernels(dev, rng) -> dict:
         got = kernel_matrices.update_matrices(r0, r1, rx, ry)
         line["K4"] = rel_ok("K4", got, kernel_matrices.update_matrices_plain(r0, r1, rx, ry))
         del got
-        # K1: the band image pulled by that flow, and by +-20 px
+        # K1: the band image pulled by that flow, and by +-20 px, bit for bit
         img = (mov / 255).contiguous()
         nfx, nfy = -rx, -ry
-        line["K1"] = abs_ok("K1", kernel_sample.sample_displaced(img, nfx, nfy),
-                            kernel_sample.sample_displaced_plain(img, nfx, nfy), 1e-5)
         big = torch.from_numpy(((rng.random((2, h, w)) - 0.5) * 40).astype(np.float32)).to(dev)
-        line["K1"] = max(line["K1"], abs_ok(
-            "K1", kernel_sample.sample_displaced(img, big[0:1].contiguous(), big[1:2].contiguous()),
-            kernel_sample.sample_displaced_plain(img, big[0:1].contiguous(), big[1:2].contiguous()), 1e-5))
+        line["K1"] = max(abs_ok("K1", kernel_sample.sample_displaced(img, *f), kernel_sample.sample_displaced_plain(img, *f),
+                                0.0) for f in ((nfx, nfy), (big[0:1].contiguous(), big[1:2].contiguous())))
         times = {}
         if timed:
             reps, preps = (20, 3)
@@ -404,7 +410,15 @@ def check_kernels(dev, rng) -> dict:
                 times[k] = (min(k1, k2), min(p1, p2), None)
             grid = sample_grid(nfx, nfy)
             times["K1"] = times["K1"][:2] + (cuda_ms(lambda: grid_sample_call(img[:, None], grid), reps),)
-            del grid
+            # and under the random flow: kernel, grid_sample, kernel
+            bx, by = big[0:1].contiguous(), big[1:2].contiguous()
+            grid = sample_grid(bx, by)
+            k_r = cuda_ms(lambda: kernel_sample.sample_displaced(img, bx, by), reps)
+            lib_r = cuda_ms(lambda: grid_sample_call(img[:, None], grid), reps)
+            k_r = min(k_r, cuda_ms(lambda: kernel_sample.sample_displaced(img, bx, by), reps))
+            times["K1 random"] = (k_r, lib_r)
+            log(f"[kernels] K1 {label} {h}x{w}, random +-20 px flow: kernel {k_r:.4f} ms grid_sample {lib_r:.4f} ms")
+            del grid, bx, by
             # K3's two passes apart (the row pass is `smooth_w`), and the clock the sums run at
             row_ms = min(cuda_ms(lambda: kernel_agg.smooth_w(m0, 99), reps) for _ in range(2))
             key = "" if label.startswith("4096") else "_20k_band"
@@ -425,6 +439,8 @@ def check_kernels(dev, rng) -> dict:
         case(h, w, label, timed=False)
     k3_windows()
     bounds = kernel_bounds(*BAND_SHAPES[0][:2])
+    for key, t in (("", t4k), ("_20k_band", t20k)):
+        results["K1"]["ms_random_flow" + key], results["K1"]["library_ms_random_flow" + key] = t["K1 random"]
     for k in results:
         results[k]["ms"], results[k]["plain_ms"], results[k]["library_ms"] = t4k[k]
         results[k]["ms_20k_band"], results[k]["plain_ms_20k_band"], results[k]["library_ms_20k_band"] = t20k[k]
@@ -446,6 +462,119 @@ def check_kernels(dev, rng) -> dict:
     require(torch.equal(u16.to(torch.float32).round().to(torch.uint16).cpu(), u16.cpu()),
             "u16 round trip on the card")
     return results
+
+
+K1_BAND_STACKS = ((torch.uint8, 4096, 4096), (torch.uint16, 4096, 4096), (torch.int16, 4096, 4096),
+                  (torch.int32, 4096, 4096), (torch.float32, 4096, 4096), (torch.uint16, 4096, 4100))
+
+
+def typed_plane(rng, dt, h, w, dev) -> torch.Tensor:
+    """A white-noise plane stored as ``dt``, over most of its range (int32:
+    up to about 2^31, where the rounding saturates)."""
+    base = torch.from_numpy(rng.integers(0, 65535, (h, w)).astype(np.int64)).to(dev)
+    return {torch.uint8: base % 256, torch.int8: base % 256 - 128, torch.uint16: base, torch.int16: base - 32768,
+            torch.int32: (base - 32768) * 65537, torch.float32: base.to(torch.float32) / 65535}[dt].to(dt)
+
+
+def check_k1_band(dev, rng, tile=1000, overlap=100) -> dict:
+    """K1's band entry (``sample_band``: one plane in its stored dtype, the
+    (H, W, 2) flow or a band's slab-coordinate pair, rounded into the
+    output's band rows) bit for bit against its plain version on the card:
+    u8, u16, i16, i32 and f32 4096^2 planes and a 4100-wide u16 plane, each
+    as the main path cuts them (one band) and in bands of 1000 rows (a
+    ragged last band), under the z-stack apply's smooth flow and a random
+    +-20 px flow; a slab-coordinate flow (the banded Farneback's
+    post-warp); an int32 plane at its maximum against the CPU's rounding.
+    Timed on the u16 4096^2 plane under the smooth flow, in the order plain,
+    band entry, K5 at one plane, band entry, K5, plain, against the bytes
+    bound (the stored plane read and written once, the flow read once)."""
+    from microaligner_tpu_torch.ops import kernel_sample as ks
+    from microaligner_tpu_torch.optflow.flow_calc import band_rows_for
+    from microaligner_tpu_torch.tiles import TileGrid
+
+    res = {"max_abs_err": 0.0}
+
+    def bit_ok(label, got, want):
+        err = float((got.to(torch.float64) - want.to(torch.float64)).abs().max())
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        require(torch.equal(got, want), f"K1 band entry {label}: not bit-equal to its plain version (err {err})")
+
+    def bands(fn, img, flow, out, rows, *pre):
+        for row0 in range(0, img.shape[-2], rows):
+            fn(*pre, img, flow, out, row0, rows, overlap)
+        return out
+
+    for dt, h, w in K1_BAND_STACKS:
+        img = typed_plane(rng, dt, h, w, dev)
+        rand = torch.from_numpy(((rng.random((h, w, 2)) - 0.5) * 40).astype(np.float32)).to(dev)
+        for flow_kind, flow in (("smooth", torch.stack(smooth_flow(h, w, dev), dim=-1).contiguous()),
+                                ("random", rand)):
+            for rows in (band_rows_for(TileGrid.for_image((h, w), tile, overlap)), 1000):
+                got = bands(ks.sample_band, img, flow, torch.empty_like(img), rows)
+                bit_ok(f"{dt} {h}x{w} {flow_kind} rows {rows}", got, bands(ks.sample_band_plain, img, flow,
+                                                                           torch.empty_like(img), rows))
+        del img, rand, flow, got
+    # the banded Farneback's post-warp: the band's own flow in slab coordinates, its halo not read
+    img = typed_plane(rng, torch.uint16, 1000, 3000, dev)
+    rows = 256
+    for row0 in range(0, 1000, rows):
+        slab = torch.from_numpy(((rng.random((2, rows + 2 * overlap, 3000 + 2 * overlap)) - 0.5) * 40)
+                                .astype(np.float32)).to(dev)
+        fx, fy = slab[0], slab[1]
+        got = ks.sample_band(img, (fx, fy), torch.zeros_like(img), row0, rows, overlap)
+        bit_ok(f"slab flow, band at {row0}", got, ks.sample_band_plain(img, (fx, fy), torch.zeros_like(img), row0,
+                                                                        rows, overlap))
+    # int32 at its maximum: the card's saturating store against the CPU's rounding
+    top = torch.full((64, 300), 2**31 - 1, dtype=torch.int32)
+    top[:, ::3] = 2**31 - 200
+    flow = torch.full((64, 300, 2), 0.5, dtype=torch.float32)
+    want = ks.sample_band_plain(top, flow, torch.empty_like(top), 0, 64, overlap)
+    got = ks.sample_band(top.to(dev), flow.to(dev), torch.empty_like(top, device=dev), 0, 64, overlap).cpu()
+    require(torch.equal(got, want) and int(want.max()) == 2**31 - 1,
+            f"int32 at its maximum: card {got.max()}, CPU {want.max()}")
+    # timing: u16 4096^2 under the smooth flow, one band as on the main path
+    h = w = 4096
+    img = typed_plane(rng, torch.uint16, h, w, dev)
+    flow = torch.stack(smooth_flow(h, w, dev), dim=-1).contiguous()
+    rows = band_rows_for(TileGrid.for_image((h, w), tile, overlap))
+    out = torch.empty_like(img)
+    out1 = out[None]
+
+    def band_entry():
+        return bands(ks.sample_band, img, flow, out, rows)
+
+    def k5_one_plane():
+        return bands(ks.sample_band_multi, img[None], flow, out1, rows)
+
+    def plain():
+        return bands(ks.sample_band_plain, img, flow, out, rows)
+
+    require(torch.equal(k5_one_plane()[0], plain()), "K5 at one plane differs from K1's band entry")
+    p1, b1, f1 = cuda_ms(plain, 3), cuda_ms(band_entry, 20), cuda_ms(k5_one_plane, 20)
+    b2, f2, p2 = cuda_ms(band_entry, 20), cuda_ms(k5_one_plane, 20), cuda_ms(plain, 3)
+    px = h * w
+    nbytes, ops = px * 2 * 2 + 8 * px, 24 * px  # K5's count at one plane (zstack_apply)
+    tb, tf = 1e3 * nbytes / H100_BYTES_PER_S, 1e3 * ops / H100_F32_FLOPS
+    res.update(ms=min(b1, b2), plain_ms=min(p1, p2), k5_one_plane_ms=min(f1, f2), bound_ms=max(tb, tf),
+               bound_by="bytes" if tb >= tf else "operations", library_ms=None, bands=-(-h // rows))
+    log(f"[kernels] K1 band entry u16 {h}^2, smooth flow, {res['bands']} band(s): {res['ms']:.4f} ms "
+        f"({100 * res['bound_ms'] / res['ms']:.0f}% of its {res['bound_ms']:.4f} ms bound, {res['bound_by']}), "
+        f"K5 at one plane {res['k5_one_plane_ms']:.4f} ms, plain {res['plain_ms']:.3f} ms; bit-equal to its plain "
+        f"version for {len(K1_BAND_STACKS)} planes, 2 band cuts, 2 flows, a slab flow and int32 at its maximum")
+    del img, flow, out, out1
+    for bad in (lambda: ks.sample_band(torch.zeros((4, 4), device=dev, dtype=torch.float64),
+                                       torch.zeros((4, 4, 2), device=dev),
+                                       torch.zeros((4, 4), device=dev, dtype=torch.float64), 0, 8, 2),
+                lambda: ks.sample_band(torch.zeros((4, 4), device=dev, dtype=torch.uint16),
+                                       torch.zeros((4, 4, 2), device=dev),
+                                       torch.zeros((4, 4), device=dev, dtype=torch.uint8), 0, 8, 2)):
+        try:
+            bad()
+        except (TypeError, ValueError):
+            pass
+        else:
+            raise CheckFailed("K1's band entry accepted an input its kernel does not take")
+    return res
 
 
 def smooth_flow(h, w, dev):
@@ -677,7 +806,7 @@ def unpaired_route(dev, rng, counters: "Counters", stack_planes, n=1024) -> dict
             finally:
                 os.environ.pop(PALLAS_POLY_ENV, None)
             if route == "unpaired":
-                got = counters.read(f"unpaired {label}", ("K1", "K3", "K4", "K6"))
+                got = counters.read(f"unpaired {label}", ("K1", "K1band", "K3", "K4", "K6"))
                 require(got["K2"] == 0, f"unpaired {label}: K2 launched {got['K2']} times")
                 launches = {k: launches.get(k, 0) + v for k, v in got.items()}
         same = torch.equal(flows["default"], flows["unpaired"])
@@ -718,6 +847,28 @@ def cycle_stack(dev, rng, n=4096, cycles=3, channels=2, zs=3):
         planes.append(per_ch)
     del textures
     return planes, warps
+
+
+def band_warp_check(label, fn, bands, dev, counters: "Counters", out_bytes=None) -> dict:
+    """``fn()``, a one-plane band warp of the main path, launches K1's band
+    entry once a band and no other kernel of K1 or K5 and no plain version,
+    and (with ``out_bytes``) allocates nothing but its output."""
+    before = counters.snapshot()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn()
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(dev) - base
+    delta = {k: v - before[k] for k, v in counters.snapshot().items()}
+    log(f"[main] {label}: {delta['K1band']} K1 band-entry launches for {bands} band(s), K1 {delta['K1']}, "
+        f"K5 {delta['K5']}, plain versions {sum(v for k, v in delta.items() if k.endswith('plain'))}; "
+        f"{extra} bytes allocated at the peak")
+    require(delta["K1band"] == bands and delta["K1"] == delta["K5"] == 0
+            and not any(v for k, v in delta.items() if k.endswith("plain")), f"{label}: launches {delta}")
+    if out_bytes is not None:
+        require(extra <= out_bytes + 2**20, f"{label}: {extra} bytes allocated for a {out_bytes}-byte output")
+    return {"launches": delta["K1band"], "bands": bands, "peak_extra_bytes": extra}
 
 
 def profile_register(reg, ref, mov, out_dir: Path) -> dict:
@@ -837,6 +988,26 @@ def main_path(dev, rng, out_dir: Path, counters: Counters, n_stack=4096, n_big=2
     report["stack_4096_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     log(f"[main] {n_stack}^2 stack: {report['stack_4096_total_s']:.2f} s for 2 registered cycles, "
         f"peak device memory {report['stack_4096_peak_gib']:.2f} GiB")
+    # the one-plane band warps of the path: one K1 launch a band, nothing allocated but the output
+    from microaligner_tpu_torch.optflow.flow_calc import band_rows_for, calc_flow_and_warp_dense_banded
+
+    grid = TileGrid.for_image((n_stack, n_stack), tile, overlap)
+    bands = -(-n_stack // band_rows_for(grid))
+    plane = torch.from_numpy(planes[1][1][0]).to(dev)
+
+    def warp_device():
+        warper.image, warper.flow = plane, flow
+        return warper.warp_device()
+
+    report["band_warps"] = {
+        "Warper.warp_device": band_warp_check("Warper.warp_device", warp_device, bands, dev, counters, 2 * n_stack**2),
+        "_apply_flow_plane": band_warp_check("_apply_flow_plane", lambda: _apply_flow_plane(plane, flow, grid, torch.uint16),
+                                             bands, dev, counters, 2 * n_stack**2),
+        "post-warp, band_rows 1024": band_warp_check(
+            "banded Farneback's post-warp, band_rows 1024",
+            lambda: calc_flow_and_warp_dense_banded(ref0, mov_img, plane, grid, 51, 1, torch.uint16, 1024),
+            4, dev, counters)}
+    del plane
     report["profile_4096"] = profile_register(
         registrator(), ref0, max_project_u8(planes[1][0], dev), out_dir)
     del applied, ref_img, ref0, flow
@@ -880,7 +1051,7 @@ def main_path(dev, rng, out_dir: Path, counters: Counters, n_stack=4096, n_big=2
     require(applied.dtype == torch.uint16, applied.dtype)
     del flow, warped, applied, ref, mov
 
-    report["launches"] = counters.read("main", ("K1", "K2", "K3", "K4"))
+    report["launches"] = counters.read("main", ("K1", "K1band", "K2", "K3", "K4"))
     return report, planes
 
 
@@ -928,7 +1099,7 @@ def zstack_apply(dev, rng, counters: Counters, n=4096, n_planes=8, tile=1000, ov
     outs = {dt: _apply_flow_planes(planes, flow, grid, dt) for dt, planes in stacks.items()}
     torch.cuda.synchronize()
     launches = counters.read("zstack", ("K5",))
-    require(launches["K1"] == 0, f"zstack: the z-stack apply launched K1 {launches['K1']} times")
+    require(launches["K1"] == launches["K1band"] == 0, f"zstack: the z-stack apply launched K1: {launches}")
     require(launches["K5"] == bands * len(stacks),
             f"zstack: {launches['K5']} K5 launches for {len(stacks)} stacks of {bands} band(s)")
     err = 0.0
@@ -1040,7 +1211,7 @@ def cli_4096(dev, planes, counters: Counters, work: Path) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     counters.reset()
     wall, stages = run_cli_in_process(work / "cfg_4096.yaml", dev)
-    launches = counters.read("cli_4096", ("K1", "K2", "K3", "K4"))
+    launches = counters.read("cli_4096", ("K1", "K1band", "K2", "K3", "K4"))
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     res = check_stage_output(out1 / "optflow_reg_result_stack.tif", planes, planes[0], 200, "cli 4096", dev,
                              mse_bar=0.25)
@@ -1089,7 +1260,7 @@ def cli_20480(dev, rng, counters: Counters, n=20480) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         counters.reset()
         wall, stages = run_cli_in_process(work / "cfg.yaml", dev)
-        launches = counters.read("cli_20480", ("K1", "K2", "K3", "K4"))
+        launches = counters.read("cli_20480", ("K1", "K1band", "K2", "K3", "K4"))
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         pinned = torch.cuda.host_memory_stats().get("allocated_bytes.peak", 0)
         margin = max(64, n // 40)  # 512 px at 20480^2, as bench.py's config 5b
@@ -1366,7 +1537,7 @@ def chained_cli(dev, rng, counters: "Counters", n: int, big: bool) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         counters.reset()
         wall, stages = run_cli_in_process(work / "cfg.yaml", dev)
-        launches = counters.read(f"chained_{n}", ("K1", "K2", "K3", "K4"))
+        launches = counters.read(f"chained_{n}", ("K1", "K1band", "K2", "K3", "K4"))
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         pinned = torch.cuda.host_memory_stats().get("allocated_bytes.peak", 0)
         prefix = cfg["Output"]["OutputPrefix"]
@@ -1418,7 +1589,7 @@ def auto_feature_pass(dev, rng, counters: "Counters", h=4096) -> dict:
         counters.reset()
         printed = []
         wall, stages = run_cli_in_process(work / "cfg.yaml", dev, printed)
-        launches = counters.read("auto", ("K1", "K2", "K3", "K4"))
+        launches = counters.read("auto", ("K1", "K1band", "K2", "K3", "K4"))
         require("Will try to perform FeatureReg first" in printed[0], "auto: no FeatureReg pass")
         out = work / "out"
         margin = min(200, h // 8)
@@ -1470,8 +1641,31 @@ def k3_build_lines(ptxas: str) -> dict:
     return out
 
 
-# the Itanium mangling of K5's dtype (its template arguments Tin = Tout)
+# the Itanium mangling of K1's and K5's dtype (their template arguments Tin = Tout)
 K5_MANGLED = {"h": "u8", "a": "i8", "t": "u16", "s": "i16", "i": "i32", "f": "f32"}
+
+
+def k1_build_lines(ptxas: str) -> dict:
+    """Registers and spill bytes of K1's instantiations
+    (``k1::sample_kernel<Tin, Tout, kRows, kSpec>``) from ``nvcc -Xptxas
+    -v``'s output (empty when the library was already built); raises if one
+    spills or takes more than 64 registers."""
+    out = {}
+    lines = ptxas.splitlines()
+    for i, line in enumerate(lines):
+        found = re.search(r"Compiling entry function '\w*?k113sample_kernelI(\w)(\w)Li(\d+)ELi(\d+)E", line)
+        if not found:
+            continue
+        text = " ".join(lines[i + 1 : i + 4])
+        spills = [int(v) for v in re.findall(r"(\d+) bytes spill", text)]
+        regs = int(re.search(r"Used (\d+) registers", text).group(1))
+        name = f"{K5_MANGLED[found.group(1)]} rows {found.group(3)} spec {found.group(4)}"
+        out[name] = {"registers": regs, "spill_bytes": sum(spills)}
+        log(f"[build] K1 {name}: {regs} registers, {sum(spills)} spill bytes")
+        require(len(spills) == 2 and sum(spills) == 0 and regs <= 64, f"K1 {name}: {text}")
+    if ptxas:
+        require(len(out) >= 6, f"ptxas named {len(out)} K1 instantiations, fewer than 6: {sorted(out)}")
+    return out
 
 
 def k5_build_lines(ptxas: str) -> dict:
@@ -1521,10 +1715,12 @@ def main():
     for line in ptxas.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
+    report["k1_build"] = k1_build_lines(ptxas)
     report["k3_build"] = k3_build_lines(ptxas)
     report["k5_build"] = k5_build_lines(ptxas)
 
     kernels = check_kernels(dev, rng)
+    kernels["K1band"] = check_k1_band(dev, rng)
     kernels["K5"] = check_k5(dev, rng)
     kernels["K6"] = check_k6(dev, rng)
     report["parity"] = parity_run(dev, rng)
@@ -1556,6 +1752,7 @@ def main():
 
     log(smi)
     sources = {"K1": ("sample_displaced", "sample.cu", "microaligner_tpu/ops/pallas_sample.py:53"),
+               "K1band": ("sample_band", "sample.cu", "microaligner_tpu/ops/pallas_sample.py:53"),
                "K2": ("poly_pair_m", "poly.cu", "microaligner_tpu/ops/pallas_poly.py:172"),
                "K3": ("smooth5_solve", "agg.cu", "microaligner_tpu/ops/pallas_agg.py:160"),
                "K4": ("update_matrices", "matrices.cu", "microaligner_tpu/ops/pallas_matrices.py:63"),

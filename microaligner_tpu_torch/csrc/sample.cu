@@ -4,18 +4,37 @@
 // Replaces microaligner_tpu/ops/pallas_sample.py::pallas_sample_displaced
 // (Pallas body `_kernel_batched`).  The TPU kernel avoided gathers with a
 // band of shifted views, exact only for integer displacements within
-// [-band, band-1]; here one thread gathers its four taps directly, so any
+// [-band, band-1]; here a thread gathers its taps directly, so any
 // displacement is exact and no banded/exact branch is needed.
 //
-// Bound on the H100: bytes.  Per pixel it reads fx, fy and four taps and
-// writes one f32; neighbouring threads own neighbouring pixels, so the flow
-// reads and the store coalesce, and for smooth flows the taps of a warp fall
-// on one or two cache lines of each of two rows.
-//
-// The output (and the displacement) may be a window of oh x ow pixels whose
-// row 0 is row `row0` of the image: output pixel (x, y) samples the image at
-// (x + fx, row0 + y + fy).  The affine warps pass one band of rows at a time
-// this way; with oh = h, ow = w and row0 = 0 it is the plain K1 above.
+// Bound on the H100: bytes.  Per output it reads the displacement (8 bytes)
+// and four taps (for smooth flows mostly from L1: neighbouring outputs share
+// them) and writes one value.  A one-output thread has two flow loads and
+// then four gathers in flight, which left the kernel latency-bound at about
+// 70% of its bound.  The design:
+// - A block of 32 x 8 threads owns a tile of kRows * 8 rows x 64 columns; a
+//   thread owns kRows * 2 outputs, columns lane + 32 j of rows warp + 8 i, so
+//   that a warp's flow loads, gathers and stores fall on consecutive words.
+// - Every flow load of the thread is issued before its first gather, and all
+//   its gathers before the first blend: 4 * kRows * 2 loads in flight.
+// - The flow is two planes (fx, fy) or one interleaved (.., 2) field read as
+//   one 8-byte load an output; either is given by a base, an element stride
+//   and a row pitch, so a caller passes a window of a larger field (a band's
+//   rows of the whole-image flow, or a band's interior in slab coordinates)
+//   without a copy.  A sign of -1 gives the Warper's pull, p - flow(p)
+//   (negation is exact, so the result equals the plain version on the
+//   negated flow).
+// - The output is a window of `rows` x `cols` pixels whose row 0 is image
+//   row `row0`, written at a row pitch of its own; taps on source rows
+//   outside [lo, hi) or columns outside [0, w) read zero.  The affine warps
+//   pass one band of output rows at a time this way, and a band of the
+//   Warper passes its halo's rows as [lo, hi), which gives `band_slab`'s zero
+//   canvas without building it.
+// - Typed in and out, as K5: the image may be stored as u8, i8, u16, i16,
+//   i32 or f32 and is converted as the taps are read; the output is rounded
+//   half to even, saturated and converted in the store (`round_to_dtype`).
+//   The float32 entry (planes (n, h, w), output (n, rows, cols)) is the
+//   <float, float> instantiation with one image plane a grid z.
 #include <climits>
 #include <type_traits>
 
@@ -23,37 +42,194 @@
 
 namespace {
 
-__global__ void sample_displaced_kernel(const float* __restrict__ img,
-                                        const float* __restrict__ fx,
-                                        const float* __restrict__ fy,
-                                        float* __restrict__ out, int h, int w, int oh,
-                                        int ow, int row0) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= ow || y >= oh) return;
-  const int64_t plane = static_cast<int64_t>(blockIdx.z) * h * w;
-  const int64_t i = static_cast<int64_t>(blockIdx.z) * oh * ow + static_cast<int64_t>(y) * ow + x;
-  const float dx = fx[i];
-  const float dy = fy[i];
-  const float x1 = floorf(dx);
-  const float y1 = floorf(dy);
-  const float tx = ma::sub(dx, x1);
-  const float ty = ma::sub(dy, y1);
-  const int xi = x + ma::floor_index(x1);
-  const int yi = row0 + y + ma::floor_index(y1);
-  const float* p = img + plane;
-  const bool x0in = xi >= 0 && xi < w;
-  const bool x1in = xi + 1 >= 0 && xi + 1 < w;
-  const bool y0in = yi >= 0 && yi < h;
-  const bool y1in = yi + 1 >= 0 && yi + 1 < h;
-  const int64_t r0 = static_cast<int64_t>(yi) * w;
-  const int64_t r1 = r0 + w;
-  const float v00 = (y0in && x0in) ? __ldg(p + r0 + xi) : 0.0f;
-  const float v01 = (y0in && x1in) ? __ldg(p + r0 + xi + 1) : 0.0f;
-  const float v10 = (y1in && x0in) ? __ldg(p + r1 + xi) : 0.0f;
-  const float v11 = (y1in && x1in) ? __ldg(p + r1 + xi + 1) : 0.0f;
-  out[i] = ma::bilinear(v00, v01, v10, v11, tx, ty);
+__device__ __forceinline__ float clamp_keep_nan(float v, float lo, float hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
 }
+
+// round_to_dtype: round half to even, clamp to the type's range (as float32
+// bounds, like torch.clamp on a float32 tensor), convert (saturating, NaN to 0)
+template <typename T>
+struct Store;
+template <>
+struct Store<float> {
+  __device__ static float cvt(float v) { return v; }
+};
+template <>
+struct Store<uint8_t> {
+  __device__ static uint8_t cvt(float v) {
+    return static_cast<uint8_t>(clamp_keep_nan(rintf(v), 0.0f, 255.0f));
+  }
+};
+template <>
+struct Store<int8_t> {
+  __device__ static int8_t cvt(float v) {
+    return static_cast<int8_t>(clamp_keep_nan(rintf(v), -128.0f, 127.0f));
+  }
+};
+template <>
+struct Store<uint16_t> {
+  __device__ static uint16_t cvt(float v) {
+    return static_cast<uint16_t>(clamp_keep_nan(rintf(v), 0.0f, 65535.0f));
+  }
+};
+template <>
+struct Store<int16_t> {
+  __device__ static int16_t cvt(float v) {
+    return static_cast<int16_t>(clamp_keep_nan(rintf(v), -32768.0f, 32767.0f));
+  }
+};
+template <>
+struct Store<int32_t> {
+  // 2147483647 is 2147483648.0f as a float32 bound; the conversion saturates,
+  // as round_to_dtype's float64 clamp does
+  __device__ static int32_t cvt(float v) {
+    return static_cast<int32_t>(clamp_keep_nan(rintf(v), -2147483648.0f, 2147483648.0f));
+  }
+};
+
+// A stored value as float32, the value `.to(torch.float32)` gives: 8- and
+// 16-bit integers as the float32 2^23 + v less 2^23 (exact, on the
+// full-rate integer and float pipes rather than the conversion unit), i32
+// rounded to nearest.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(int32_t v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_f32(uint16_t v) {
+  return ma::sub(__uint_as_float(0x4B000000u | v), 8388608.0f);
+}
+__device__ __forceinline__ float to_f32(int16_t v) {
+  return ma::sub(__uint_as_float(0x4B000000u | static_cast<unsigned>(v + 32768)), 8421376.0f);
+}
+__device__ __forceinline__ float to_f32(uint8_t v) {
+  return ma::sub(__uint_as_float(0x4B000000u | v), 8388608.0f);
+}
+__device__ __forceinline__ float to_f32(int8_t v) {
+  return ma::sub(__uint_as_float(0x4B000000u | static_cast<unsigned>(v + 128)), 8388736.0f);
+}
+
+// dtype codes of ops/kernel_sample.py::DTYPE_CODES
+enum Kind { kU8 = 0, kI8 = 1, kU16 = 2, kI16 = 3, kI32 = 4, kF32 = 5 };
+
+namespace k1 {
+
+constexpr int kLanes = 32, kWarps = 8, kThreads = kLanes * kWarps;
+constexpr int kCols = 2, kTileW = kLanes * kCols;  // outputs a thread along a row; 64 columns a tile
+constexpr int kMinBlocks = 4;                      // blocks an SM: at most 64 registers a thread
+
+struct Args {
+  const void* img;  // (n, h, w) Tin
+  // displacement of output (x, y) of plane k: fsign * fx[k * fplane + y * fpitch + x * fstride]
+  const float* fx;
+  const float* fy;
+  long long fplane;
+  int fstride, fpitch;
+  float fsign;
+  int pair;  // fy == fx + 1, on 8 bytes with an even stride and pitch: one 8-byte load an output
+  void* out;  // output (x, y) of plane k at out[k * oplane + y * opitch + x], Tout
+  long long oplane;
+  int opitch;
+  int h, w;        // the image
+  int rows, cols;  // the output window
+  int row0;        // image row of output row 0
+  int lo, hi;      // valid source rows [lo, hi)
+};
+
+// kSpec: 0, or the image under each output is prefetched into L1 (1) or L2
+// (2) beside the flow's loads, so that a smooth flow's gathers hit a cache
+template <typename Tin, typename Tout, int kRows, int kSpec>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) sample_kernel(const Args a) {
+  constexpr int kOut = kCols * kRows;
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int x0 = blockIdx.x * kTileW + lane;
+  const int y0 = blockIdx.y * (kWarps * kRows) + warp;
+  const size_t k = blockIdx.z;
+  const Tin* __restrict__ img = static_cast<const Tin*>(a.img) + k * a.h * static_cast<size_t>(a.w);
+  const float* __restrict__ fx = a.fx + k * a.fplane;
+  const float* __restrict__ fy = a.fy + k * a.fplane;
+  float dx[kOut], dy[kOut];
+  unsigned active = 0u;
+#pragma unroll
+  for (int o = 0; o < kOut; ++o) {
+    const int x = x0 + (o % kCols) * kLanes, y = y0 + (o / kCols) * kWarps;
+    dx[o] = dy[o] = 0.0f;
+    if (x >= a.cols || y >= a.rows) continue;
+    active |= 1u << o;
+    const int i = y * a.fpitch + x * a.fstride;
+    if (a.pair) {
+      const float2 f = __ldg(reinterpret_cast<const float2*>(fx + i));
+      dx[o] = f.x, dy[o] = f.y;
+    } else {
+      dx[o] = __ldg(fx + i), dy[o] = __ldg(fy + i);
+    }
+  }
+  if (kSpec) {
+#pragma unroll
+    for (int o = 0; o < kOut; ++o) {
+      const int x = x0 + (o % kCols) * kLanes, y = a.row0 + y0 + (o / kCols) * kWarps;
+      if (!(active >> o & 1u) || x >= a.w || y < a.lo || y >= a.hi) continue;
+      const Tin* p = img + (y * a.w + x);
+      if (kSpec == 1) {
+        asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
+      } else {
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+      }
+    }
+  }
+  float tx[kOut], ty[kOut];
+  int i00[kOut];
+  unsigned m[kOut];
+#pragma unroll
+  for (int o = 0; o < kOut; ++o) {
+    const int x = x0 + (o % kCols) * kLanes, y = a.row0 + y0 + (o / kCols) * kWarps;
+    const float fxo = ma::mul(a.fsign, dx[o]), fyo = ma::mul(a.fsign, dy[o]);
+    const float x1 = floorf(fxo), y1 = floorf(fyo);
+    tx[o] = ma::sub(fxo, x1);
+    ty[o] = ma::sub(fyo, y1);
+    const int xi = x + ma::floor_index(x1), yi = y + ma::floor_index(y1);
+    const bool x0in = xi >= 0 && xi < a.w, x1in = xi + 1 >= 0 && xi + 1 < a.w;
+    const bool y0in = yi >= a.lo && yi < a.hi, y1in = yi + 1 >= a.lo && yi + 1 < a.hi;
+    m[o] = (active >> o & 1u) ? ((y0in && x0in) | (y0in && x1in) << 1 | (y1in && x0in) << 2 | (y1in && x1in) << 3)
+                              : 0u;
+    i00[o] = m[o] ? yi * a.w + xi : 0;  // in [-w - 1, h * w) when any tap is in
+  }
+  float v[kOut][4];
+#pragma unroll
+  for (int o = 0; o < kOut; ++o) {
+    const int i = i00[o];
+    v[o][0] = (m[o] & 1u) ? to_f32(__ldg(img + i)) : 0.0f;
+    v[o][1] = (m[o] & 2u) ? to_f32(__ldg(img + i + 1)) : 0.0f;
+    v[o][2] = (m[o] & 4u) ? to_f32(__ldg(img + i + a.w)) : 0.0f;
+    v[o][3] = (m[o] & 8u) ? to_f32(__ldg(img + i + a.w + 1)) : 0.0f;
+  }
+  Tout* __restrict__ out = static_cast<Tout*>(a.out) + k * a.oplane;
+#pragma unroll
+  for (int o = 0; o < kOut; ++o) {
+    if (!(active >> o & 1u)) continue;
+    const int x = x0 + (o % kCols) * kLanes, y = y0 + (o / kCols) * kWarps;
+    out[y * a.opitch + x] = Store<Tout>::cvt(ma::bilinear(v[o][0], v[o][1], v[o][2], v[o][3], tx[o], ty[o]));
+  }
+}
+
+template <typename Tin, typename Tout, int kRows, int kSpec>
+int launch(const Args& a, int n, cudaStream_t stream) {
+  const dim3 block(kLanes, kWarps);
+  const dim3 grid((a.cols + kTileW - 1) / kTileW, (a.rows + kWarps * kRows - 1) / (kWarps * kRows), n);
+  sample_kernel<Tin, Tout, kRows, kSpec><<<grid, block, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the design variants timed against each other (scripts/k1_chip.py)
+template <typename Tin, typename Tout>
+int launch_variant(const Args& a, int n, int variant, cudaStream_t stream) {
+  switch (variant) {
+    case 0: return launch<Tin, Tout, 2, 0>(a, n, stream);
+    case 1: return launch<Tin, Tout, 2, 1>(a, n, stream);
+    case 2: return launch<Tin, Tout, 2, 2>(a, n, stream);
+    case 3: return launch<Tin, Tout, 1, 0>(a, n, stream);
+    default: return -1;
+  }
+}
+
+}  // namespace k1
 
 // K5: K1 for N planes that share one displacement field.
 //
@@ -121,69 +297,6 @@ struct Args {
   int lo, hi;             // valid source rows [lo, hi)
   unsigned int* staged;  // null, or a count of the tiles that took the staged branch
 };
-
-__device__ __forceinline__ float clamp_keep_nan(float v, float lo, float hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
-
-// round_to_dtype: round half to even, clamp to the type's range (as float32
-// bounds, like torch.clamp on a float32 tensor), convert (saturating, NaN to 0)
-template <typename T>
-struct Store;
-template <>
-struct Store<float> {
-  __device__ static float cvt(float v) { return v; }
-};
-template <>
-struct Store<uint8_t> {
-  __device__ static uint8_t cvt(float v) {
-    return static_cast<uint8_t>(clamp_keep_nan(rintf(v), 0.0f, 255.0f));
-  }
-};
-template <>
-struct Store<int8_t> {
-  __device__ static int8_t cvt(float v) {
-    return static_cast<int8_t>(clamp_keep_nan(rintf(v), -128.0f, 127.0f));
-  }
-};
-template <>
-struct Store<uint16_t> {
-  __device__ static uint16_t cvt(float v) {
-    return static_cast<uint16_t>(clamp_keep_nan(rintf(v), 0.0f, 65535.0f));
-  }
-};
-template <>
-struct Store<int16_t> {
-  __device__ static int16_t cvt(float v) {
-    return static_cast<int16_t>(clamp_keep_nan(rintf(v), -32768.0f, 32767.0f));
-  }
-};
-template <>
-struct Store<int32_t> {
-  // 2147483647 is 2147483648.0f as a float32 bound; the conversion saturates
-  __device__ static int32_t cvt(float v) {
-    return static_cast<int32_t>(clamp_keep_nan(rintf(v), -2147483648.0f, 2147483648.0f));
-  }
-};
-
-// A stored value as float32, the value `.to(torch.float32)` gives: 8- and
-// 16-bit integers as the float32 2^23 + v less 2^23 (exact, on the
-// full-rate integer and float pipes rather than the conversion unit), i32
-// rounded to nearest.
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(int32_t v) { return static_cast<float>(v); }
-__device__ __forceinline__ float to_f32(uint16_t v) {
-  return ma::sub(__uint_as_float(0x4B000000u | v), 8388608.0f);
-}
-__device__ __forceinline__ float to_f32(int16_t v) {
-  return ma::sub(__uint_as_float(0x4B000000u | static_cast<unsigned>(v + 32768)), 8421376.0f);
-}
-__device__ __forceinline__ float to_f32(uint8_t v) {
-  return ma::sub(__uint_as_float(0x4B000000u | v), 8388608.0f);
-}
-__device__ __forceinline__ float to_f32(int8_t v) {
-  return ma::sub(__uint_as_float(0x4B000000u | static_cast<unsigned>(v + 128)), 8388736.0f);
-}
 
 // 16 bytes from global to shared memory, or 16 zero bytes when !full (the
 // source is then not read).
@@ -417,20 +530,28 @@ int launch(const Args& a, int vec, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype codes of ops/kernel_sample.py::DTYPE_CODES
-enum Kind { kU8 = 0, kI8 = 1, kU16 = 2, kI16 = 3, kI32 = 4, kF32 = 5 };
-
 }  // namespace k5
 
 }  // namespace
 
-extern "C" int ma_sample_displaced(const float* img, const float* fx, const float* fy,
-                                   float* out, int n, int h, int w, int oh, int ow, int row0,
-                                   cudaStream_t stream) {
-  const dim3 block(32, 8);
-  const dim3 grid((ow + block.x - 1) / block.x, (oh + block.y - 1) / block.y, n);
-  sample_displaced_kernel<<<grid, block, 0, stream>>>(img, fx, fy, out, h, w, oh, ow, row0);
-  return static_cast<int>(cudaGetLastError());
+// K1: image and output of one dtype (`kind`), one of the six; n image planes,
+// one a grid z.
+extern "C" int ma_sample(const void* img, const float* fx, const float* fy, long long fplane,
+                         int fstride, int fpitch, float fsign, int pair, void* out, long long oplane,
+                         int opitch, int n, int h, int w, int rows, int cols, int row0, int lo, int hi,
+                         int kind, int variant, cudaStream_t stream) {
+  using namespace k1;
+  const Args a{img, fx, fy, fplane, fstride, fpitch, fsign, pair, out, oplane, opitch, h, w, rows, cols,
+               row0, lo, hi};
+  switch (kind) {
+    case kU8: return launch_variant<uint8_t, uint8_t>(a, n, variant, stream);
+    case kI8: return launch_variant<int8_t, int8_t>(a, n, variant, stream);
+    case kU16: return launch_variant<uint16_t, uint16_t>(a, n, variant, stream);
+    case kI16: return launch_variant<int16_t, int16_t>(a, n, variant, stream);
+    case kI32: return launch_variant<int32_t, int32_t>(a, n, variant, stream);
+    case kF32: return launch_variant<float, float>(a, n, variant, stream);
+    default: return -1;
+  }
 }
 
 // K5: planes and output of one dtype (`kind`), one of the six.

@@ -238,10 +238,17 @@ def minmax_normalize_u8(img: torch.Tensor) -> torch.Tensor:
 
 def round_to_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Round half to even and saturate to an integer ``dtype`` (cv.remap on
-    integer images); float dtypes are a plain cast."""
+    integer images); float dtypes are a plain cast.
+
+    The 32-bit types round and clamp in float64: as a float32 bound their
+    maximum is 2**31 or 2**32, out of range, and the cast would wrap it.  In
+    float64 the bound is exact, so a value at or above the maximum gives the
+    maximum (and ±inf the maximum or minimum), as the kernels' stores do."""
     if dtype.is_floating_point:
         return x.to(dtype)
     info = torch.iinfo(dtype)
+    if info.bits >= 32:
+        x = x.to(torch.float64)
     return torch.clamp(torch.round(x), info.min, info.max).to(dtype)
 
 

@@ -28,7 +28,10 @@ import torch
 from microaligner_tpu_torch.ops.affine_tiled import affine_warp_bands
 from microaligner_tpu_torch.ops.filters import round_to_dtype
 from microaligner_tpu_torch.ops.kernel_sample import (
+    DTYPE_CODES,
+    band_bounds,
     bilinear_taps,
+    sample_band,
     sample_displaced,
     sample_displaced_multi,
 )
@@ -40,6 +43,7 @@ __all__ = [
     "warp_with_flow",
     "warp_with_flow_batched",
     "warp_with_flow_parts_batched",
+    "warp_band",
     "warp_planes_with_flow",
     "warp_planes_with_flow_parts",
     "compose_flows",
@@ -85,6 +89,24 @@ def warp_with_flow_parts_batched(imgs: torch.Tensor, fx: torch.Tensor, fy: torch
     """The Warper's pull, ``out(p) = imgs(p - flow(p))``, with the flow as
     separate (N, H, W) channels; f32 output."""
     return sample_displaced(imgs.to(torch.float32).contiguous(), -fx, -fy)
+
+
+def warp_band(image: torch.Tensor, flow, out: torch.Tensor, row0: int, rows: int, overlap: int) -> None:
+    """One band of the Warper's banded warp of the (H, W) ``image`` into
+    rows ``[row0, row0 + n_in)`` of ``out``, rounded to ``out.dtype``
+    (:func:`sample_band`; ``flow`` is the (H, W, 2) field or the band's
+    slab-coordinate pair).  Where the image's dtype is ``out``'s and one of
+    the kernel's six, that is one launch that reads the stored plane and
+    writes the rounded rows; other pairs of dtype go through the float32
+    instantiation on the band's source rows as float32, then are rounded."""
+    if image.dtype == out.dtype and out.dtype in DTYPE_CODES:
+        sample_band(image, flow, out, row0, rows, overlap)
+        return
+    n_in, lo, hi = band_bounds(image.shape[0], row0, rows, overlap)
+    slab = image[lo:hi].to(torch.float32).contiguous()
+    band_flow = flow if isinstance(flow, tuple) else flow[lo:hi]
+    warped = sample_band(slab, band_flow, torch.empty_like(slab), row0 - lo, rows, overlap)
+    out[row0 : row0 + n_in] = round_to_dtype(warped[row0 - lo : row0 - lo + n_in], out.dtype)
 
 
 def warp_planes_with_flow(imgs: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:

@@ -19,8 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from microaligner_tpu_torch.ops.filters import round_to_dtype
-from microaligner_tpu_torch.ops.warp import warp_with_flow_parts_batched
+from microaligner_tpu_torch.ops.warp import warp_band
 from microaligner_tpu_torch.optflow.farneback import _farneback_core_parts, farneback
 from microaligner_tpu_torch.parallel import tile_map
 from microaligner_tpu_torch.tiles import TileGrid
@@ -65,31 +64,31 @@ def band_slab(img: torch.Tensor, row0: int, rows: int, o: int) -> torch.Tensor:
 def _dense_banded_core(ref_img, mov_img, warp_src, grid: TileGrid, win_size: int,
                        num_iter: int, band_rows: int, out_dtype=None):
     """Per band: Farneback on the halo'd slab pair, interiors kept; with
-    ``warp_src``, the slab of ``warp_src`` is also pulled by the band's flow
-    with its halo zeroed, rounded to ``out_dtype`` and its interior kept.
-    Returns (fx, fy[, warped]), each (H, W)."""
+    ``warp_src``, ``warp_src`` is also pulled by the band's flow (its halo
+    is not read: only interiors are kept), rounded to ``out_dtype`` and
+    written into the band's rows, one K1 launch a band (``warp_band``, the
+    band's flow in its slab coordinates).  Returns (fx, fy[, warped]), each
+    (H, W)."""
     h, w, o = grid.height, grid.width, grid.overlap
     nb = -(-h // band_rows)
+    warped = None
     if warp_src is not None:
-        # the halo's flow is zeroed before the warp (only interiors are kept)
-        interior = torch.zeros((band_rows + 2 * o, w + 2 * o), dtype=torch.float32,
-                               device=ref_img.device)
-        interior[o : o + band_rows, o : o + w] = 1.0
+        warp_src = warp_src.contiguous()
+        warped = torch.empty((h, w), dtype=out_dtype, device=warp_src.device)
 
     def band(i):
         row0 = int(i) * band_rows
         br = band_slab(ref_img, row0, band_rows, o)
         bm = band_slab(mov_img, row0, band_rows, o)
         fx, fy = _farneback_core_parts(bm[None], br[None], win_size, num_iter, 1, 1.7)
+        if warp_src is not None:
+            warp_band(warp_src, (fx[0], fy[0]), warped, row0, band_rows, o)
         sl = (slice(None), slice(o, o + band_rows), slice(o, o + w))
-        if warp_src is None:
-            return fx[sl], fy[sl]
-        bw = band_slab(warp_src, row0, band_rows, o)
-        warped = warp_with_flow_parts_batched(bw[None], fx * interior, fy * interior)
-        return fx[sl], fy[sl], round_to_dtype(warped[sl], out_dtype)
+        return fx[sl], fy[sl]
 
     outs = tile_map(band, (torch.arange(nb),), batch=1)
-    return tuple(x.reshape(nb * band_rows, w)[:h] for x in outs)
+    flow = tuple(x.reshape(nb * band_rows, w)[:h] for x in outs)
+    return flow if warped is None else flow + (warped,)
 
 
 def calc_flow_dense_banded(ref_img, mov_img, grid: TileGrid, win_size: int, num_iter: int,

@@ -3,9 +3,10 @@
 PyTorch counterpart of ``microaligner_tpu/optflow/warper.py`` on its default
 (row-band) path.  A pixel pulls only from within its band's halo-expanded
 slab, so a displacement beyond ``overlap`` reads zeros, as in the
-reference's per-tile ``cv.remap``.  All sampling goes through K1, except
-:func:`warp_planes_tiled`, which pulls N planes by one flow through K5, one
-launch a band, typed in and out.
+reference's per-tile ``cv.remap``.  The one-plane band warp is one K1
+launch a band, typed in and out (``sample_band``); :func:`warp_planes_tiled`
+pulls N planes by one flow through K5, one launch a band, typed in and out;
+the tiled composition samples through K1's float32 entry.
 """
 
 from __future__ import annotations
@@ -17,9 +18,8 @@ import torch
 
 from microaligner_tpu_torch.ops.filters import round_to_dtype
 from microaligner_tpu_torch.ops.kernel_sample import DTYPE_CODES, band_bounds, sample_band_multi
-from microaligner_tpu_torch.ops.pad import zero_pad
-from microaligner_tpu_torch.ops.warp import compose_flows_batched, warp_with_flow_parts_batched
-from microaligner_tpu_torch.optflow.flow_calc import band_rows_for, band_slab
+from microaligner_tpu_torch.ops.warp import compose_flows_batched, warp_band
+from microaligner_tpu_torch.optflow.flow_calc import band_rows_for
 from microaligner_tpu_torch.parallel import tile_map
 from microaligner_tpu_torch.tiles import TileGrid, pad_canvas, stitch_interiors, tile_origins
 from microaligner_tpu_torch.utils.device import resolve_device
@@ -41,22 +41,15 @@ def _warp_banded(image: torch.Tensor, flow: torch.Tensor, grid: TileGrid,
                  out_dtype: torch.dtype, band_rows: int) -> torch.Tensor:
     """Full-width row-band warp: each band's slab (zeros outside the image)
     is pulled by the band's flow, zero on the halo; interiors are rounded to
-    ``out_dtype`` and kept."""
-    o = grid.overlap
-    h, w = grid.height, grid.width
-    nb = -(-h // band_rows)
-
-    def band(i):
-        row0 = int(i) * band_rows
-        n_in = min(band_rows, h - row0)
-        src = band_slab(image, row0, band_rows, o)
-        fx = zero_pad(flow[row0 : row0 + n_in, :, 0], o, band_rows - n_in + o, o, o)
-        fy = zero_pad(flow[row0 : row0 + n_in, :, 1], o, band_rows - n_in + o, o, o)
-        warped = warp_with_flow_parts_batched(src[None], fx[None], fy[None])
-        return round_to_dtype(warped[:, o : o + band_rows, o : o + w], out_dtype)
-
-    out = tile_map(band, (torch.arange(nb),), batch=1)
-    return out.reshape(nb * band_rows, w)[:h]
+    ``out_dtype`` and kept.  One K1 launch a band (:func:`warp_band`) where
+    the image's dtype is ``out_dtype``: nothing but the output is
+    allocated."""
+    image = image.contiguous()
+    flow = flow.to(torch.float32).contiguous()
+    out = torch.empty((grid.height, grid.width), dtype=out_dtype, device=image.device)
+    for row0 in range(0, grid.height, band_rows):
+        warp_band(image, flow, out, row0, band_rows, grid.overlap)
+    return out
 
 
 def warp_tiled(image: torch.Tensor, flow: torch.Tensor, grid: TileGrid,
@@ -154,11 +147,15 @@ def torch_dtype_of(img) -> torch.dtype:
 
 
 def round_to_numpy_dtype(arr: np.ndarray, dtype) -> np.ndarray:
-    """Round half to even and clip a float array to an integer numpy
-    ``dtype`` (``cv.remap`` on integer images); float dtypes are a cast."""
+    """Round half to even and saturate a float array to an integer numpy
+    ``dtype`` (``cv.remap`` on integer images); float dtypes are a cast.
+    The 32-bit types round and clip in float64, where their bounds are
+    exact (:func:`round_to_dtype`)."""
     dtype = np.dtype(dtype)
     if np.issubdtype(dtype, np.integer):
         info = np.iinfo(dtype)
+        if dtype.itemsize >= 4:
+            arr = np.asarray(arr, np.float64)
         arr = np.clip(np.round(arr), info.min, info.max)
     return arr.astype(dtype)
 

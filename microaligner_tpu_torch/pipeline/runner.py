@@ -36,7 +36,6 @@ from microaligner_tpu_torch.features.registrator import FeatureRegistrator
 from microaligner_tpu_torch.io.ome import create_new_meta
 from microaligner_tpu_torch.io.tiff import MemmapWriter, TiffFile, read_tiff_page
 from microaligner_tpu_torch.ops.affine_tiled import affine_warp_bands
-from microaligner_tpu_torch.ops.filters import round_to_dtype
 from microaligner_tpu_torch.ops.pad import calculate_padding_size, pad_to_shape, zero_pad
 from microaligner_tpu_torch.ops.warp import inverse_of
 from microaligner_tpu_torch.optflow.registrator import OptFlowRegistrator
@@ -45,7 +44,7 @@ from microaligner_tpu_torch.optflow.warper import (
     Warper,
     round_to_numpy_dtype,
     warp_planes_tiled,
-    warp_tiled,
+    warp_tiled_dtype,
 )
 from microaligner_tpu_torch.pipeline.apply import stream_apply
 from microaligner_tpu_torch.pipeline.config import PipelineConfig
@@ -98,8 +97,9 @@ def _apply_flow_plane(img: torch.Tensor, flow: torch.Tensor, grid: TileGrid,
                       dtype: torch.dtype, band_rows: Optional[int] = None) -> torch.Tensor:
     """Banded warp of one (H, W) plane by the (H, W, 2) flow on the flow's
     device, rounded half to even and clipped back to ``dtype`` (``cv.remap``
-    on integer images rounds)."""
-    return round_to_dtype(warp_tiled(img, flow, grid, band_rows), dtype)
+    on integer images rounds) inside each band: one K1 launch a band of the
+    stored plane when its dtype is ``dtype`` (``warp_tiled_dtype``)."""
+    return warp_tiled_dtype(img, flow, grid, dtype, band_rows)
 
 
 def _apply_flow_planes(imgs: torch.Tensor, flow: torch.Tensor, grid: TileGrid,
