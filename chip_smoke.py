@@ -7,13 +7,16 @@ NVIDIA GPU.
 Run it from the repository root; it needs one card and takes no arguments.  Phases, each printing its own lines:
 
 1. build: compile ``microaligner_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
-   (one nvcc process a source, all at once); the two K3 kernels' registers,
-   shared memory a block and blocks an SM, and the registers and shared
-   memory of K5's six instantiations (one a dtype), are printed, and a
-   spill in either fails the run;
+   (one nvcc process a source, all at once); K1's registers, the two K3
+   kernels' registers, shared memory a block and blocks an SM, and the
+   registers and shared memory of K5's six instantiations (one a dtype),
+   are printed, and a spill in any of them (or more than 64 registers for
+   K1) fails the run;
 2. kernels: K1-K4 against their plain PyTorch versions on the card, at the
    main path's band shapes (4296 x 4296, 1256 x 20680) and edge cases, with
-   CUDA-event times of kernel and plain version; K3 also at windows 11 and
+   CUDA-event times of kernel and plain version; K1 bit for bit, under the
+   K3 flow and a random +-20 px flow, timed against ``F.grid_sample``
+   under both; K3 also at windows 11 and
    257, at N > 1 and at H or W below the half-window, its row pass alone,
    and, with its plain version, against the plain version run in float64
    (the kernel must be no further from it than the plain version is); K5
@@ -22,6 +25,12 @@ Run it from the repository root; it needs one card and takes no arguments.  Phas
    20480^2 one, each timed under a random +-20 px flow and under the z-stack
    apply's smooth flow, and at the edge shapes under both flows, with the
    share of its tiles that took the staged branch (both branches must run);
+   K5's band entry at one plane, the entry of the one-plane band warps (the
+   Warper, the per-plane apply, the banded Farneback's post-warp), bit for
+   bit against its plain version for u8, u16, i16, i32 and f32 4096^2
+   planes and a 4096 x 4100 u16 plane, for a slab-coordinate flow and for
+   an int32 plane at its maximum, timed against its plain version and its
+   bytes bound;
    K6 (one image's expansion) bit for bit against its plain version and
    K2's expansions at those slabs and at H or W of 1-3, timed against
    ``F.conv2d`` with the five folded filters, K2, and 2 x K6 plus the
@@ -37,14 +46,17 @@ Run it from the repository root; it needs one card and takes no arguments.  Phas
 4. main path: the CLI's cycle loop (z-max projection, ``register_device``,
    ``warp_device``, per-plane apply) over a synthetic 3-cycle x 2-channel x
    3-z u16 4096^2 stack, then a 2-cycle 20480^2 u8 register and a one-plane
-   apply, with stage times, peak device memory and the kernels' launch counts,
-   and one 4096^2 register under torch.profiler (device time by kernel and
-   the device's busy share; the table goes to ``chiprun_out/``);
+   apply, with stage times, peak device memory and the kernels' launch counts;
+   the Warper, the per-plane apply and the banded Farneback's post-warp
+   each make one K5 launch a band and none of K1, and the first two
+   allocate nothing but their output; and one 4096^2 register under
+   torch.profiler (device time by kernel and the device's busy share; the
+   table goes to ``chiprun_out/``);
 5. z-stack apply: 8 4096^2 planes warped by one flow through
    ``_apply_flow_planes`` (one K5 launch a band, ``sample_band_multi``,
    the stored dtype in and out) as u16, u8, i16 and f32 stacks, each bit
    for bit equal to the band entry's plain version and to
-   ``_apply_flow_plane`` on each plane (K1); the band entry is timed on the
+   ``_apply_flow_plane`` on each plane; the band entry is timed on the
    u16 stack against its plain version and its bytes bound (the numbers of
    K5's entry in the ``kernels`` line, since every K5 launch of the paths is
    this wrapper's) and on the f32 stack against ``F.grid_sample``;
@@ -165,18 +177,18 @@ def cuda_ms(fn, reps: int) -> float:
 class Counters:
     """The launch counters of every kernel wrapper and the call counters of
     their plain versions: ``reset()`` just before a path, ``read()`` just
-    after it.  K1's two entries, the float32 one and the one-plane band
-    warp's (``K1band``), are counted apart; K5's two entries, the float32
-    one and the z-stack apply's band entry, are summed."""
+    after it.  K5 has two entries, the float32 one and the band entry of the
+    band warps (the z-stack apply's and, at one plane, the Warper's, the
+    per-plane apply's and the banded Farneback's post-warp); their counts
+    are summed."""
 
     def __init__(self):
         from microaligner_tpu_torch.ops import kernel_agg, kernel_matrices, kernel_poly, kernel_sample as ks
 
-        self.wrappers = {"K1": (ks.sample_displaced,), "K1band": (ks.sample_band,), "K2": (kernel_poly.poly_pair_m,),
+        self.wrappers = {"K1": (ks.sample_displaced,), "K2": (kernel_poly.poly_pair_m,),
                          "K3": (kernel_agg.smooth5_solve,), "K4": (kernel_matrices.update_matrices,),
                          "K5": (ks.sample_displaced_multi, ks.sample_band_multi), "K6": (kernel_poly.poly_exp5,)}
-        self.plains = {"K1": (ks.sample_displaced_plain,), "K1band": (ks.sample_band_plain,),
-                       "K2": (kernel_poly.poly_pair_m_plain,),
+        self.plains = {"K1": (ks.sample_displaced_plain,), "K2": (kernel_poly.poly_pair_m_plain,),
                        "K3": (kernel_agg.smooth5_solve_plain,), "K4": (kernel_matrices.update_matrices_plain,),
                        "K5": (ks.sample_displaced_multi_plain, ks.sample_band_multi_plain),
                        "K6": (kernel_poly.poly_exp5_plain,)}
@@ -464,8 +476,8 @@ def check_kernels(dev, rng) -> dict:
     return results
 
 
-K1_BAND_STACKS = ((torch.uint8, 4096, 4096), (torch.uint16, 4096, 4096), (torch.int16, 4096, 4096),
-                  (torch.int32, 4096, 4096), (torch.float32, 4096, 4096), (torch.uint16, 4096, 4100))
+ONE_PLANE_BANDS = ((torch.uint8, 4096, 4096), (torch.uint16, 4096, 4096), (torch.int16, 4096, 4096),
+                   (torch.int32, 4096, 4096), (torch.float32, 4096, 4096), (torch.uint16, 4096, 4100))
 
 
 def typed_plane(rng, dt, h, w, dev) -> torch.Tensor:
@@ -476,18 +488,18 @@ def typed_plane(rng, dt, h, w, dev) -> torch.Tensor:
             torch.int32: (base - 32768) * 65537, torch.float32: base.to(torch.float32) / 65535}[dt].to(dt)
 
 
-def check_k1_band(dev, rng, tile=1000, overlap=100) -> dict:
-    """K1's band entry (``sample_band``: one plane in its stored dtype, the
-    (H, W, 2) flow or a band's slab-coordinate pair, rounded into the
-    output's band rows) bit for bit against its plain version on the card:
-    u8, u16, i16, i32 and f32 4096^2 planes and a 4100-wide u16 plane, each
-    as the main path cuts them (one band) and in bands of 1000 rows (a
-    ragged last band), under the z-stack apply's smooth flow and a random
-    +-20 px flow; a slab-coordinate flow (the banded Farneback's
-    post-warp); an int32 plane at its maximum against the CPU's rounding.
-    Timed on the u16 4096^2 plane under the smooth flow, in the order plain,
-    band entry, K5 at one plane, band entry, K5, plain, against the bytes
-    bound (the stored plane read and written once, the flow read once)."""
+def check_one_plane_band(dev, rng, tile=1000, overlap=100) -> dict:
+    """The band entry of the one-plane band warps (``sample_band_multi`` at
+    one plane: the Warper, the per-plane apply, the banded Farneback's
+    post-warp) bit for bit against its plain version on the card: u8, u16,
+    i16, i32 and f32 4096^2 planes and a 4100-wide u16 plane, each as the
+    main path cuts them (one band) and in bands of 1000 rows (a ragged last
+    band), under the z-stack apply's smooth flow and a random +-20 px flow;
+    a slab-coordinate flow (the banded Farneback's post-warp); an int32
+    plane at its maximum against the CPU's rounding.  Timed on the u16
+    4096^2 plane under the smooth flow, plain, entry, entry, plain, against
+    the bytes bound (the stored plane read and written once, the flow read
+    once)."""
     from microaligner_tpu_torch.ops import kernel_sample as ks
     from microaligner_tpu_torch.optflow.flow_calc import band_rows_for
     from microaligner_tpu_torch.tiles import TileGrid
@@ -497,21 +509,21 @@ def check_k1_band(dev, rng, tile=1000, overlap=100) -> dict:
     def bit_ok(label, got, want):
         err = float((got.to(torch.float64) - want.to(torch.float64)).abs().max())
         res["max_abs_err"] = max(res["max_abs_err"], err)
-        require(torch.equal(got, want), f"K1 band entry {label}: not bit-equal to its plain version (err {err})")
+        require(torch.equal(got, want), f"one-plane band entry {label}: not bit-equal to its plain version (err {err})")
 
-    def bands(fn, img, flow, out, rows, *pre):
+    def bands(fn, img, flow, out, rows):
         for row0 in range(0, img.shape[-2], rows):
-            fn(*pre, img, flow, out, row0, rows, overlap)
+            fn(img[None], flow, out[None], row0, rows, overlap)
         return out
 
-    for dt, h, w in K1_BAND_STACKS:
+    for dt, h, w in ONE_PLANE_BANDS:
         img = typed_plane(rng, dt, h, w, dev)
         rand = torch.from_numpy(((rng.random((h, w, 2)) - 0.5) * 40).astype(np.float32)).to(dev)
         for flow_kind, flow in (("smooth", torch.stack(smooth_flow(h, w, dev), dim=-1).contiguous()),
                                 ("random", rand)):
             for rows in (band_rows_for(TileGrid.for_image((h, w), tile, overlap)), 1000):
-                got = bands(ks.sample_band, img, flow, torch.empty_like(img), rows)
-                bit_ok(f"{dt} {h}x{w} {flow_kind} rows {rows}", got, bands(ks.sample_band_plain, img, flow,
+                got = bands(ks.sample_band_multi, img, flow, torch.empty_like(img), rows)
+                bit_ok(f"{dt} {h}x{w} {flow_kind} rows {rows}", got, bands(ks.sample_band_multi_plain, img, flow,
                                                                            torch.empty_like(img), rows))
         del img, rand, flow, got
     # the banded Farneback's post-warp: the band's own flow in slab coordinates, its halo not read
@@ -520,16 +532,16 @@ def check_k1_band(dev, rng, tile=1000, overlap=100) -> dict:
     for row0 in range(0, 1000, rows):
         slab = torch.from_numpy(((rng.random((2, rows + 2 * overlap, 3000 + 2 * overlap)) - 0.5) * 40)
                                 .astype(np.float32)).to(dev)
-        fx, fy = slab[0], slab[1]
-        got = ks.sample_band(img, (fx, fy), torch.zeros_like(img), row0, rows, overlap)
-        bit_ok(f"slab flow, band at {row0}", got, ks.sample_band_plain(img, (fx, fy), torch.zeros_like(img), row0,
-                                                                        rows, overlap))
+        pair = (slab[0], slab[1])
+        got = ks.sample_band_multi(img[None], pair, torch.zeros_like(img)[None], row0, rows, overlap)
+        bit_ok(f"slab flow, band at {row0}", got, ks.sample_band_multi_plain(
+            img[None], pair, torch.zeros_like(img)[None], row0, rows, overlap))
     # int32 at its maximum: the card's saturating store against the CPU's rounding
-    top = torch.full((64, 300), 2**31 - 1, dtype=torch.int32)
-    top[:, ::3] = 2**31 - 200
-    flow = torch.full((64, 300, 2), 0.5, dtype=torch.float32)
-    want = ks.sample_band_plain(top, flow, torch.empty_like(top), 0, 64, overlap)
-    got = ks.sample_band(top.to(dev), flow.to(dev), torch.empty_like(top, device=dev), 0, 64, overlap).cpu()
+    top = torch.full((1, 64, 304), 2**31 - 1, dtype=torch.int32)
+    top[..., ::3] = 2**31 - 200
+    flow = torch.full((64, 304, 2), 0.5, dtype=torch.float32)
+    want = ks.sample_band_multi_plain(top, flow, torch.empty_like(top), 0, 64, overlap)
+    got = ks.sample_band_multi(top.to(dev), flow.to(dev), torch.empty_like(top, device=dev), 0, 64, overlap).cpu()
     require(torch.equal(got, want) and int(want.max()) == 2**31 - 1,
             f"int32 at its maximum: card {got.max()}, CPU {want.max()}")
     # timing: u16 4096^2 under the smooth flow, one band as on the main path
@@ -538,42 +550,20 @@ def check_k1_band(dev, rng, tile=1000, overlap=100) -> dict:
     flow = torch.stack(smooth_flow(h, w, dev), dim=-1).contiguous()
     rows = band_rows_for(TileGrid.for_image((h, w), tile, overlap))
     out = torch.empty_like(img)
-    out1 = out[None]
-
-    def band_entry():
-        return bands(ks.sample_band, img, flow, out, rows)
-
-    def k5_one_plane():
-        return bands(ks.sample_band_multi, img[None], flow, out1, rows)
-
-    def plain():
-        return bands(ks.sample_band_plain, img, flow, out, rows)
-
-    require(torch.equal(k5_one_plane()[0], plain()), "K5 at one plane differs from K1's band entry")
-    p1, b1, f1 = cuda_ms(plain, 3), cuda_ms(band_entry, 20), cuda_ms(k5_one_plane, 20)
-    b2, f2, p2 = cuda_ms(band_entry, 20), cuda_ms(k5_one_plane, 20), cuda_ms(plain, 3)
+    p1, b1 = cuda_ms(lambda: bands(ks.sample_band_multi_plain, img, flow, out, rows), 3), cuda_ms(
+        lambda: bands(ks.sample_band_multi, img, flow, out, rows), 20)
+    b2, p2 = cuda_ms(lambda: bands(ks.sample_band_multi, img, flow, out, rows), 20), cuda_ms(
+        lambda: bands(ks.sample_band_multi_plain, img, flow, out, rows), 3)
     px = h * w
-    nbytes, ops = px * 2 * 2 + 8 * px, 24 * px  # K5's count at one plane (zstack_apply)
+    nbytes, ops = px * 2 * 2 + 8 * px, 24 * px  # zstack_apply's count at one plane
     tb, tf = 1e3 * nbytes / H100_BYTES_PER_S, 1e3 * ops / H100_F32_FLOPS
-    res.update(ms=min(b1, b2), plain_ms=min(p1, p2), k5_one_plane_ms=min(f1, f2), bound_ms=max(tb, tf),
-               bound_by="bytes" if tb >= tf else "operations", library_ms=None, bands=-(-h // rows))
-    log(f"[kernels] K1 band entry u16 {h}^2, smooth flow, {res['bands']} band(s): {res['ms']:.4f} ms "
-        f"({100 * res['bound_ms'] / res['ms']:.0f}% of its {res['bound_ms']:.4f} ms bound, {res['bound_by']}), "
-        f"K5 at one plane {res['k5_one_plane_ms']:.4f} ms, plain {res['plain_ms']:.3f} ms; bit-equal to its plain "
-        f"version for {len(K1_BAND_STACKS)} planes, 2 band cuts, 2 flows, a slab flow and int32 at its maximum")
-    del img, flow, out, out1
-    for bad in (lambda: ks.sample_band(torch.zeros((4, 4), device=dev, dtype=torch.float64),
-                                       torch.zeros((4, 4, 2), device=dev),
-                                       torch.zeros((4, 4), device=dev, dtype=torch.float64), 0, 8, 2),
-                lambda: ks.sample_band(torch.zeros((4, 4), device=dev, dtype=torch.uint16),
-                                       torch.zeros((4, 4, 2), device=dev),
-                                       torch.zeros((4, 4), device=dev, dtype=torch.uint8), 0, 8, 2)):
-        try:
-            bad()
-        except (TypeError, ValueError):
-            pass
-        else:
-            raise CheckFailed("K1's band entry accepted an input its kernel does not take")
+    res.update(ms=min(b1, b2), plain_ms=min(p1, p2), bound_ms=max(tb, tf), bound_by="bytes" if tb >= tf else "operations",
+               bands=-(-h // rows))
+    log(f"[kernels] K5 band entry at one plane, u16 {h}^2, smooth flow, {res['bands']} band(s): {res['ms']:.4f} ms "
+        f"({100 * res['bound_ms'] / res['ms']:.0f}% of its {res['bound_ms']:.4f} ms bound, {res['bound_by']}), plain "
+        f"{res['plain_ms']:.3f} ms; bit-equal to its plain version for {len(ONE_PLANE_BANDS)} planes, 2 band cuts, "
+        f"2 flows, a slab flow and int32 at its maximum")
+    del img, flow, out
     return res
 
 
@@ -806,7 +796,7 @@ def unpaired_route(dev, rng, counters: "Counters", stack_planes, n=1024) -> dict
             finally:
                 os.environ.pop(PALLAS_POLY_ENV, None)
             if route == "unpaired":
-                got = counters.read(f"unpaired {label}", ("K1", "K1band", "K3", "K4", "K6"))
+                got = counters.read(f"unpaired {label}", ("K1", "K3", "K4", "K5", "K6"))
                 require(got["K2"] == 0, f"unpaired {label}: K2 launched {got['K2']} times")
                 launches = {k: launches.get(k, 0) + v for k, v in got.items()}
         same = torch.equal(flows["default"], flows["unpaired"])
@@ -850,9 +840,9 @@ def cycle_stack(dev, rng, n=4096, cycles=3, channels=2, zs=3):
 
 
 def band_warp_check(label, fn, bands, dev, counters: "Counters", out_bytes=None) -> dict:
-    """``fn()``, a one-plane band warp of the main path, launches K1's band
-    entry once a band and no other kernel of K1 or K5 and no plain version,
-    and (with ``out_bytes``) allocates nothing but its output."""
+    """``fn()``, a one-plane band warp of the main path, launches K5's band
+    entry once a band, K1 never and no plain version, and (with
+    ``out_bytes``) allocates nothing but its output."""
     before = counters.snapshot()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated(dev)
@@ -861,14 +851,13 @@ def band_warp_check(label, fn, bands, dev, counters: "Counters", out_bytes=None)
     torch.cuda.synchronize()
     extra = torch.cuda.max_memory_allocated(dev) - base
     delta = {k: v - before[k] for k, v in counters.snapshot().items()}
-    log(f"[main] {label}: {delta['K1band']} K1 band-entry launches for {bands} band(s), K1 {delta['K1']}, "
-        f"K5 {delta['K5']}, plain versions {sum(v for k, v in delta.items() if k.endswith('plain'))}; "
-        f"{extra} bytes allocated at the peak")
-    require(delta["K1band"] == bands and delta["K1"] == delta["K5"] == 0
-            and not any(v for k, v in delta.items() if k.endswith("plain")), f"{label}: launches {delta}")
+    plain = sum(v for k, v in delta.items() if k.endswith("plain"))
+    log(f"[main] {label}: {delta['K5']} K5 band-entry launches for {bands} band(s), K1 {delta['K1']}, plain "
+        f"versions {plain}; {extra} bytes allocated at the peak")
+    require(delta["K5"] == bands and delta["K1"] == 0 and plain == 0, f"{label}: launches {delta}")
     if out_bytes is not None:
         require(extra <= out_bytes + 2**20, f"{label}: {extra} bytes allocated for a {out_bytes}-byte output")
-    return {"launches": delta["K1band"], "bands": bands, "peak_extra_bytes": extra}
+    return {"launches": delta["K5"], "bands": bands, "peak_extra_bytes": extra}
 
 
 def profile_register(reg, ref, mov, out_dir: Path) -> dict:
@@ -988,7 +977,7 @@ def main_path(dev, rng, out_dir: Path, counters: Counters, n_stack=4096, n_big=2
     report["stack_4096_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     log(f"[main] {n_stack}^2 stack: {report['stack_4096_total_s']:.2f} s for 2 registered cycles, "
         f"peak device memory {report['stack_4096_peak_gib']:.2f} GiB")
-    # the one-plane band warps of the path: one K1 launch a band, nothing allocated but the output
+    # the one-plane band warps of the path: one K5 launch a band, nothing allocated but the output
     from microaligner_tpu_torch.optflow.flow_calc import band_rows_for, calc_flow_and_warp_dense_banded
 
     grid = TileGrid.for_image((n_stack, n_stack), tile, overlap)
@@ -1051,7 +1040,7 @@ def main_path(dev, rng, out_dir: Path, counters: Counters, n_stack=4096, n_big=2
     require(applied.dtype == torch.uint16, applied.dtype)
     del flow, warped, applied, ref, mov
 
-    report["launches"] = counters.read("main", ("K1", "K1band", "K2", "K3", "K4"))
+    report["launches"] = counters.read("main", ("K1", "K2", "K3", "K4", "K5"))
     return report, planes
 
 
@@ -1067,7 +1056,8 @@ def zstack_apply(dev, rng, counters: Counters, n=4096, n_planes=8, tile=1000, ov
     that reads the stored planes and writes the rounded result, for u16
     (the bench's), u8, i16 and f32 stacks; each held bit for bit against
     the band entry's plain version on the card and ``_apply_flow_plane`` on
-    each plane (K1).  Every K5 launch of the paths is this wrapper's, so
+    each plane (K5 at one plane).  Every K5 launch of the paths is this
+    wrapper's, so
     K5's entry of the ``kernels`` line is its u16 launches, timed here
     against the plain version and against the bound (stored planes read
     once and written once, the flow read once); the f32 stack's launches
@@ -1099,7 +1089,7 @@ def zstack_apply(dev, rng, counters: Counters, n=4096, n_planes=8, tile=1000, ov
     outs = {dt: _apply_flow_planes(planes, flow, grid, dt) for dt, planes in stacks.items()}
     torch.cuda.synchronize()
     launches = counters.read("zstack", ("K5",))
-    require(launches["K1"] == launches["K1band"] == 0, f"zstack: the z-stack apply launched K1: {launches}")
+    require(launches["K1"] == 0, f"zstack: the z-stack apply launched K1 {launches['K1']} times")
     require(launches["K5"] == bands * len(stacks),
             f"zstack: {launches['K5']} K5 launches for {len(stacks)} stacks of {bands} band(s)")
     err = 0.0
@@ -1110,7 +1100,7 @@ def zstack_apply(dev, rng, counters: Counters, n=4096, n_planes=8, tile=1000, ov
         err = max(err, float((multi.to(torch.float64) - want.to(torch.float64)).abs().max()))
         require(torch.equal(multi, want), f"z-stack apply, {dt}: K5 and its plain version differ")
         del want
-        require(torch.equal(multi, per_plane(planes, dt)), f"z-stack apply, {dt}: K5 and K1 a plane differ")
+        require(torch.equal(multi, per_plane(planes, dt)), f"z-stack apply, {dt}: the stack and the apply a plane differ")
     del outs
     res = {"launches": launches, "bands": bands, "apply_ms": {}}
     for dt, planes in stacks.items():
@@ -1142,9 +1132,9 @@ def zstack_apply(dev, rng, counters: Counters, n=4096, n_planes=8, tile=1000, ov
     log(f"[zstack] {n_planes} u16 {n}^2 planes, one flow, tile {tile} overlap {overlap}, {bands} band(s): "
         f"sample_band_multi (K5) {b['ms']:.4f} ms ({100 * b['bound_ms'] / b['ms']:.0f}% of its "
         f"{b['bound_ms']:.4f} ms bound, {b['bound_by']}), plain {b['plain_ms']:.3f} ms, _apply_flow_plane a plane "
-        f"(K1) {res['per_plane_ms']:.3f} ms; _apply_flow_planes u16, u8, i16, f32 "
+        f"{res['per_plane_ms']:.3f} ms; _apply_flow_planes u16, u8, i16, f32 "
         f"{', '.join(f'{v:.4f}' for v in res['apply_ms'].values())} ms; f32 stack's band entry {f32_ms:.4f} ms, "
-        f"grid_sample {lib_f32:.4f} ms; all bit-equal to the plain version and to K1 a plane")
+        f"grid_sample {lib_f32:.4f} ms; all bit-equal to the plain version and to the apply a plane")
     return res
 
 
@@ -1211,7 +1201,7 @@ def cli_4096(dev, planes, counters: Counters, work: Path) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     counters.reset()
     wall, stages = run_cli_in_process(work / "cfg_4096.yaml", dev)
-    launches = counters.read("cli_4096", ("K1", "K1band", "K2", "K3", "K4"))
+    launches = counters.read("cli_4096", ("K1", "K2", "K3", "K4", "K5"))
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     res = check_stage_output(out1 / "optflow_reg_result_stack.tif", planes, planes[0], 200, "cli 4096", dev,
                              mse_bar=0.25)
@@ -1260,7 +1250,7 @@ def cli_20480(dev, rng, counters: Counters, n=20480) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         counters.reset()
         wall, stages = run_cli_in_process(work / "cfg.yaml", dev)
-        launches = counters.read("cli_20480", ("K1", "K1band", "K2", "K3", "K4"))
+        launches = counters.read("cli_20480", ("K1", "K2", "K3", "K4", "K5"))
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         pinned = torch.cuda.host_memory_stats().get("allocated_bytes.peak", 0)
         margin = max(64, n // 40)  # 512 px at 20480^2, as bench.py's config 5b
@@ -1537,7 +1527,7 @@ def chained_cli(dev, rng, counters: "Counters", n: int, big: bool) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         counters.reset()
         wall, stages = run_cli_in_process(work / "cfg.yaml", dev)
-        launches = counters.read(f"chained_{n}", ("K1", "K1band", "K2", "K3", "K4"))
+        launches = counters.read(f"chained_{n}", ("K1", "K2", "K3", "K4", "K5"))
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         pinned = torch.cuda.host_memory_stats().get("allocated_bytes.peak", 0)
         prefix = cfg["Output"]["OutputPrefix"]
@@ -1589,7 +1579,7 @@ def auto_feature_pass(dev, rng, counters: "Counters", h=4096) -> dict:
         counters.reset()
         printed = []
         wall, stages = run_cli_in_process(work / "cfg.yaml", dev, printed)
-        launches = counters.read("auto", ("K1", "K1band", "K2", "K3", "K4"))
+        launches = counters.read("auto", ("K1", "K2", "K3", "K4", "K5"))
         require("Will try to perform FeatureReg first" in printed[0], "auto: no FeatureReg pass")
         out = work / "out"
         margin = min(200, h // 8)
@@ -1641,30 +1631,26 @@ def k3_build_lines(ptxas: str) -> dict:
     return out
 
 
-# the Itanium mangling of K1's and K5's dtype (their template arguments Tin = Tout)
+# the Itanium mangling of K5's dtype (its template arguments Tin = Tout)
 K5_MANGLED = {"h": "u8", "a": "i8", "t": "u16", "s": "i16", "i": "i32", "f": "f32"}
 
 
 def k1_build_lines(ptxas: str) -> dict:
-    """Registers and spill bytes of K1's instantiations
-    (``k1::sample_kernel<Tin, Tout, kRows, kSpec>``) from ``nvcc -Xptxas
-    -v``'s output (empty when the library was already built); raises if one
-    spills or takes more than 64 registers."""
+    """Registers and spill bytes of K1's kernel (``k1::sample_kernel``) from
+    ``nvcc -Xptxas -v``'s output (empty when the library was already
+    built); raises if it spills or takes more than 64 registers."""
     out = {}
     lines = ptxas.splitlines()
     for i, line in enumerate(lines):
-        found = re.search(r"Compiling entry function '\w*?k113sample_kernelI(\w)(\w)Li(\d+)ELi(\d+)E", line)
-        if not found:
+        if not re.search(r"Compiling entry function '\w*?k113sample_kernelE", line):
             continue
         text = " ".join(lines[i + 1 : i + 4])
         spills = [int(v) for v in re.findall(r"(\d+) bytes spill", text)]
-        regs = int(re.search(r"Used (\d+) registers", text).group(1))
-        name = f"{K5_MANGLED[found.group(1)]} rows {found.group(3)} spec {found.group(4)}"
-        out[name] = {"registers": regs, "spill_bytes": sum(spills)}
-        log(f"[build] K1 {name}: {regs} registers, {sum(spills)} spill bytes")
-        require(len(spills) == 2 and sum(spills) == 0 and regs <= 64, f"K1 {name}: {text}")
+        out = {"registers": int(re.search(r"Used (\d+) registers", text).group(1)), "spill_bytes": sum(spills)}
+        log(f"[build] K1: {out['registers']} registers, {out['spill_bytes']} spill bytes")
+        require(len(spills) == 2 and sum(spills) == 0 and out["registers"] <= 64, f"K1: {text}")
     if ptxas:
-        require(len(out) >= 6, f"ptxas named {len(out)} K1 instantiations, fewer than 6: {sorted(out)}")
+        require(out, "ptxas named no K1 kernel")
     return out
 
 
@@ -1720,7 +1706,6 @@ def main():
     report["k5_build"] = k5_build_lines(ptxas)
 
     kernels = check_kernels(dev, rng)
-    kernels["K1band"] = check_k1_band(dev, rng)
     kernels["K5"] = check_k5(dev, rng)
     kernels["K6"] = check_k6(dev, rng)
     report["parity"] = parity_run(dev, rng)
@@ -1732,7 +1717,8 @@ def main():
     report["zstack"] = zstack_apply(dev, rng, counters)
     # every K5 launch of the paths is the band entry's: its line reports that wrapper (u16, the bench's
     # stack), and the float32 entry's numbers stay in the report
-    kernels["K5"] = {"f32_entry": kernels["K5"], **report["zstack"]["band_entry"]}
+    kernels["K5"] = {"f32_entry": kernels["K5"], "one_plane": check_one_plane_band(dev, rng),
+                     **report["zstack"]["band_entry"]}
     work = Path(tempfile.mkdtemp(prefix="ma_chip_smoke_4k_"))
     try:
         report["cli_4096"] = cli_4096(dev, stack_planes, counters, work)
@@ -1752,7 +1738,6 @@ def main():
 
     log(smi)
     sources = {"K1": ("sample_displaced", "sample.cu", "microaligner_tpu/ops/pallas_sample.py:53"),
-               "K1band": ("sample_band", "sample.cu", "microaligner_tpu/ops/pallas_sample.py:53"),
                "K2": ("poly_pair_m", "poly.cu", "microaligner_tpu/ops/pallas_poly.py:172"),
                "K3": ("smooth5_solve", "agg.cu", "microaligner_tpu/ops/pallas_agg.py:160"),
                "K4": ("update_matrices", "matrices.cu", "microaligner_tpu/ops/pallas_matrices.py:63"),

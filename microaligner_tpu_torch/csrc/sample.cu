@@ -7,34 +7,23 @@
 // [-band, band-1]; here a thread gathers its taps directly, so any
 // displacement is exact and no banded/exact branch is needed.
 //
-// Bound on the H100: bytes.  Per output it reads the displacement (8 bytes)
-// and four taps (for smooth flows mostly from L1: neighbouring outputs share
-// them) and writes one value.  A one-output thread has two flow loads and
-// then four gathers in flight, which left the kernel latency-bound at about
-// 70% of its bound.  The design:
-// - A block of 32 x 8 threads owns a tile of kRows * 8 rows x 64 columns; a
-//   thread owns kRows * 2 outputs, columns lane + 32 j of rows warp + 8 i, so
-//   that a warp's flow loads, gathers and stores fall on consecutive words.
-// - Every flow load of the thread is issued before its first gather, and all
-//   its gathers before the first blend: 4 * kRows * 2 loads in flight.
-// - The flow is two planes (fx, fy) or one interleaved (.., 2) field read as
-//   one 8-byte load an output; either is given by a base, an element stride
-//   and a row pitch, so a caller passes a window of a larger field (a band's
-//   rows of the whole-image flow, or a band's interior in slab coordinates)
-//   without a copy.  A sign of -1 gives the Warper's pull, p - flow(p)
-//   (negation is exact, so the result equals the plain version on the
-//   negated flow).
-// - The output is a window of `rows` x `cols` pixels whose row 0 is image
-//   row `row0`, written at a row pitch of its own; taps on source rows
-//   outside [lo, hi) or columns outside [0, w) read zero.  The affine warps
-//   pass one band of output rows at a time this way, and a band of the
-//   Warper passes its halo's rows as [lo, hi), which gives `band_slab`'s zero
-//   canvas without building it.
-// - Typed in and out, as K5: the image may be stored as u8, i8, u16, i16,
-//   i32 or f32 and is converted as the taps are read; the output is rounded
-//   half to even, saturated and converted in the store (`round_to_dtype`).
-//   The float32 entry (planes (n, h, w), output (n, rows, cols)) is the
-//   <float, float> instantiation with one image plane a grid z.
+// Bound on the H100: bytes.  Per output it reads fx, fy and four taps (for
+// smooth flows mostly from L1: neighbouring outputs share them) and writes
+// one f32.  A one-output thread has two flow loads and then four gathers in
+// flight, which left the kernel latency-bound at about 70% of its bound,
+// behind F.grid_sample at the 20480^2 band slab.  The design:
+// - A block of 32 x 8 threads owns a tile of 16 rows x 64 columns; a thread
+//   owns 4 outputs, columns lane + 32 j of rows warp and warp + 8, so that a
+//   warp's flow loads, gathers and stores fall on consecutive words.
+// - Every flow load of the thread is issued before its first gather, and
+//   all 16 gathers before the first blend.  Beside the flow's loads the
+//   image under each output is prefetched into L1, so that a smooth flow's
+//   gathers, issued a flow latency later, find their lines there.
+// - The output (and the displacement) may be a window of rows x cols pixels
+//   whose row 0 is image row `row0`: output pixel (x, y) samples the image
+//   at (x + fx, row0 + y + fy).  The affine warps pass one band of output
+//   rows at a time this way; with the whole image and row0 = 0 it is the
+//   plain K1.  One image plane a grid z.
 #include <climits>
 #include <type_traits>
 
@@ -112,39 +101,29 @@ enum Kind { kU8 = 0, kI8 = 1, kU16 = 2, kI16 = 3, kI32 = 4, kF32 = 5 };
 namespace k1 {
 
 constexpr int kLanes = 32, kWarps = 8, kThreads = kLanes * kWarps;
-constexpr int kCols = 2, kTileW = kLanes * kCols;  // outputs a thread along a row; 64 columns a tile
-constexpr int kMinBlocks = 4;                      // blocks an SM: at most 64 registers a thread
+constexpr int kCols = 2, kRows = 2, kOut = kCols * kRows;
+constexpr int kTileW = kLanes * kCols, kTileH = kWarps * kRows;  // 64 x 16 outputs
+constexpr int kMinBlocks = 4;                                   // blocks an SM: at most 64 registers a thread
 
 struct Args {
-  const void* img;  // (n, h, w) Tin
-  // displacement of output (x, y) of plane k: fsign * fx[k * fplane + y * fpitch + x * fstride]
-  const float* fx;
+  const float* img;  // (n, h, w)
+  const float* fx;   // (n, rows, cols): displacement of output (x, y)
   const float* fy;
-  long long fplane;
-  int fstride, fpitch;
-  float fsign;
-  int pair;  // fy == fx + 1, on 8 bytes with an even stride and pitch: one 8-byte load an output
-  void* out;  // output (x, y) of plane k at out[k * oplane + y * opitch + x], Tout
-  long long oplane;
-  int opitch;
-  int h, w;        // the image
-  int rows, cols;  // the output window
-  int row0;        // image row of output row 0
-  int lo, hi;      // valid source rows [lo, hi)
+  float* out;        // (n, rows, cols)
+  int h, w;          // the image
+  int rows, cols;    // the output window
+  int row0;          // image row of output row 0
 };
 
-// kSpec: 0, or the image under each output is prefetched into L1 (1) or L2
-// (2) beside the flow's loads, so that a smooth flow's gathers hit a cache
-template <typename Tin, typename Tout, int kRows, int kSpec>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) sample_kernel(const Args a) {
-  constexpr int kOut = kCols * kRows;
   const int lane = threadIdx.x, warp = threadIdx.y;
   const int x0 = blockIdx.x * kTileW + lane;
-  const int y0 = blockIdx.y * (kWarps * kRows) + warp;
+  const int y0 = blockIdx.y * kTileH + warp;
   const size_t k = blockIdx.z;
-  const Tin* __restrict__ img = static_cast<const Tin*>(a.img) + k * a.h * static_cast<size_t>(a.w);
-  const float* __restrict__ fx = a.fx + k * a.fplane;
-  const float* __restrict__ fy = a.fy + k * a.fplane;
+  const float* __restrict__ img = a.img + k * a.h * static_cast<size_t>(a.w);
+  const size_t plane = static_cast<size_t>(a.rows) * a.cols;
+  const float* __restrict__ fx = a.fx + k * plane;
+  const float* __restrict__ fy = a.fy + k * plane;
   float dx[kOut], dy[kOut];
   unsigned active = 0u;
 #pragma unroll
@@ -153,25 +132,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sample_kernel(const Args
     dx[o] = dy[o] = 0.0f;
     if (x >= a.cols || y >= a.rows) continue;
     active |= 1u << o;
-    const int i = y * a.fpitch + x * a.fstride;
-    if (a.pair) {
-      const float2 f = __ldg(reinterpret_cast<const float2*>(fx + i));
-      dx[o] = f.x, dy[o] = f.y;
-    } else {
-      dx[o] = __ldg(fx + i), dy[o] = __ldg(fy + i);
-    }
+    dx[o] = __ldg(fx + (y * a.cols + x));
+    dy[o] = __ldg(fy + (y * a.cols + x));
   }
-  if (kSpec) {
 #pragma unroll
-    for (int o = 0; o < kOut; ++o) {
-      const int x = x0 + (o % kCols) * kLanes, y = a.row0 + y0 + (o / kCols) * kWarps;
-      if (!(active >> o & 1u) || x >= a.w || y < a.lo || y >= a.hi) continue;
-      const Tin* p = img + (y * a.w + x);
-      if (kSpec == 1) {
-        asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
-      } else {
-        asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
-      }
+  for (int o = 0; o < kOut; ++o) {
+    const int x = x0 + (o % kCols) * kLanes, y = a.row0 + y0 + (o / kCols) * kWarps;
+    if ((active >> o & 1u) && x < a.w && y < a.h) {
+      asm volatile("prefetch.global.L1 [%0];" ::"l"(img + (y * a.w + x)));
     }
   }
   float tx[kOut], ty[kOut];
@@ -180,13 +148,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sample_kernel(const Args
 #pragma unroll
   for (int o = 0; o < kOut; ++o) {
     const int x = x0 + (o % kCols) * kLanes, y = a.row0 + y0 + (o / kCols) * kWarps;
-    const float fxo = ma::mul(a.fsign, dx[o]), fyo = ma::mul(a.fsign, dy[o]);
-    const float x1 = floorf(fxo), y1 = floorf(fyo);
-    tx[o] = ma::sub(fxo, x1);
-    ty[o] = ma::sub(fyo, y1);
+    const float x1 = floorf(dx[o]), y1 = floorf(dy[o]);
+    tx[o] = ma::sub(dx[o], x1);
+    ty[o] = ma::sub(dy[o], y1);
     const int xi = x + ma::floor_index(x1), yi = y + ma::floor_index(y1);
     const bool x0in = xi >= 0 && xi < a.w, x1in = xi + 1 >= 0 && xi + 1 < a.w;
-    const bool y0in = yi >= a.lo && yi < a.hi, y1in = yi + 1 >= a.lo && yi + 1 < a.hi;
+    const bool y0in = yi >= 0 && yi < a.h, y1in = yi + 1 >= 0 && yi + 1 < a.h;
     m[o] = (active >> o & 1u) ? ((y0in && x0in) | (y0in && x1in) << 1 | (y1in && x0in) << 2 | (y1in && x1in) << 3)
                               : 0u;
     i00[o] = m[o] ? yi * a.w + xi : 0;  // in [-w - 1, h * w) when any tap is in
@@ -195,37 +162,17 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sample_kernel(const Args
 #pragma unroll
   for (int o = 0; o < kOut; ++o) {
     const int i = i00[o];
-    v[o][0] = (m[o] & 1u) ? to_f32(__ldg(img + i)) : 0.0f;
-    v[o][1] = (m[o] & 2u) ? to_f32(__ldg(img + i + 1)) : 0.0f;
-    v[o][2] = (m[o] & 4u) ? to_f32(__ldg(img + i + a.w)) : 0.0f;
-    v[o][3] = (m[o] & 8u) ? to_f32(__ldg(img + i + a.w + 1)) : 0.0f;
+    v[o][0] = (m[o] & 1u) ? __ldg(img + i) : 0.0f;
+    v[o][1] = (m[o] & 2u) ? __ldg(img + i + 1) : 0.0f;
+    v[o][2] = (m[o] & 4u) ? __ldg(img + i + a.w) : 0.0f;
+    v[o][3] = (m[o] & 8u) ? __ldg(img + i + a.w + 1) : 0.0f;
   }
-  Tout* __restrict__ out = static_cast<Tout*>(a.out) + k * a.oplane;
+  float* __restrict__ out = a.out + k * plane;
 #pragma unroll
   for (int o = 0; o < kOut; ++o) {
     if (!(active >> o & 1u)) continue;
     const int x = x0 + (o % kCols) * kLanes, y = y0 + (o / kCols) * kWarps;
-    out[y * a.opitch + x] = Store<Tout>::cvt(ma::bilinear(v[o][0], v[o][1], v[o][2], v[o][3], tx[o], ty[o]));
-  }
-}
-
-template <typename Tin, typename Tout, int kRows, int kSpec>
-int launch(const Args& a, int n, cudaStream_t stream) {
-  const dim3 block(kLanes, kWarps);
-  const dim3 grid((a.cols + kTileW - 1) / kTileW, (a.rows + kWarps * kRows - 1) / (kWarps * kRows), n);
-  sample_kernel<Tin, Tout, kRows, kSpec><<<grid, block, 0, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// the design variants timed against each other (scripts/k1_chip.py)
-template <typename Tin, typename Tout>
-int launch_variant(const Args& a, int n, int variant, cudaStream_t stream) {
-  switch (variant) {
-    case 0: return launch<Tin, Tout, 2, 0>(a, n, stream);
-    case 1: return launch<Tin, Tout, 2, 1>(a, n, stream);
-    case 2: return launch<Tin, Tout, 2, 2>(a, n, stream);
-    case 3: return launch<Tin, Tout, 1, 0>(a, n, stream);
-    default: return -1;
+    out[y * a.cols + x] = ma::bilinear(v[o][0], v[o][1], v[o][2], v[o][3], tx[o], ty[o]);
   }
 }
 
@@ -271,8 +218,11 @@ int launch_variant(const Args& a, int n, int variant, cudaStream_t stream) {
 //   source rows outside [lo, hi) read zero (a band of the z-stack apply with
 //   its halo), as do taps outside the columns [0, w).
 // - The flow is either two planes fx, fy (taps at p + f) or one interleaved
-//   (h, w, 2) field read with the sign -1 (taps at p - f, the Warper's pull).
-//   Negation is exact, so both round as K1 on the negated flow does.
+//   (h, w, 2) field read with the sign -1 (taps at p - f, the Warper's pull),
+//   given by the launch's first row, an element stride and a row pitch, so
+//   a band's own flow in its slab coordinates (the banded Farneback's) is
+//   read in place.  Negation is exact, so both round as K1 on the negated
+//   flow does.
 namespace k5 {
 
 constexpr int kLanes = 32, kWarps = 8, kThreads = kLanes * kWarps;
@@ -287,9 +237,10 @@ constexpr int kMinBlocks = 4;                 // blocks an SM: 64 registers a th
 
 struct Args {
   const void* img;  // (n, h, w) Tin
-  const float* fx;  // displacement of image pixel i: fsign * fx[i * fstride]
+  // displacement of output (x, y), image row row0 + y: fsign * fx[y * fpitch + x * fstride]
+  const float* fx;
   const float* fy;
-  int fstride;
+  int fstride, fpitch;
   float fsign;
   void* out;  // (n, h, w) Tout
   int n, h, w;
@@ -456,7 +407,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sample_multi_kernel(cons
     const int y = y0 + (o / kCols) * kWarps;
     dx[o] = dy[o] = 0.0f;
     if (x >= a.w || y >= a.rows) continue;
-    const size_t i = (static_cast<size_t>(a.row0 + y) * a.w + x) * a.fstride;
+    const int i = y * a.fpitch + x * a.fstride;
     dx[o] = __ldg(a.fx + i);
     dy[o] = __ldg(a.fy + i);
     t.active |= 1u << o;
@@ -534,33 +485,21 @@ int launch(const Args& a, int vec, cudaStream_t stream) {
 
 }  // namespace
 
-// K1: image and output of one dtype (`kind`), one of the six; n image planes,
-// one a grid z.
-extern "C" int ma_sample(const void* img, const float* fx, const float* fy, long long fplane,
-                         int fstride, int fpitch, float fsign, int pair, void* out, long long oplane,
-                         int opitch, int n, int h, int w, int rows, int cols, int row0, int lo, int hi,
-                         int kind, int variant, cudaStream_t stream) {
+extern "C" int ma_sample_displaced(const float* img, const float* fx, const float* fy, float* out, int n,
+                                   int h, int w, int rows, int cols, int row0, cudaStream_t stream) {
   using namespace k1;
-  const Args a{img, fx, fy, fplane, fstride, fpitch, fsign, pair, out, oplane, opitch, h, w, rows, cols,
-               row0, lo, hi};
-  switch (kind) {
-    case kU8: return launch_variant<uint8_t, uint8_t>(a, n, variant, stream);
-    case kI8: return launch_variant<int8_t, int8_t>(a, n, variant, stream);
-    case kU16: return launch_variant<uint16_t, uint16_t>(a, n, variant, stream);
-    case kI16: return launch_variant<int16_t, int16_t>(a, n, variant, stream);
-    case kI32: return launch_variant<int32_t, int32_t>(a, n, variant, stream);
-    case kF32: return launch_variant<float, float>(a, n, variant, stream);
-    default: return -1;
-  }
+  const dim3 grid((cols + kTileW - 1) / kTileW, (rows + kTileH - 1) / kTileH, n);
+  sample_kernel<<<grid, dim3(kLanes, kWarps), 0, stream>>>(Args{img, fx, fy, out, h, w, rows, cols, row0});
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K5: planes and output of one dtype (`kind`), one of the six.
 extern "C" int ma_sample_multi(const void* img, const float* fx, const float* fy, int fstride,
-                               float fsign, void* out, int n, int h, int w, int row0, int rows,
-                               int lo, int hi, int kind, int vec, unsigned int* staged,
+                               int fpitch, float fsign, void* out, int n, int h, int w, int row0,
+                               int rows, int lo, int hi, int kind, int vec, unsigned int* staged,
                                cudaStream_t stream) {
   using namespace k5;
-  const Args a{img, fx, fy, fstride, fsign, out, n, h, w, row0, rows, lo, hi, staged};
+  const Args a{img, fx, fy, fstride, fpitch, fsign, out, n, h, w, row0, rows, lo, hi, staged};
   switch (kind) {
     case kU8: return launch<uint8_t, uint8_t>(a, vec, stream);
     case kI8: return launch<int8_t, int8_t>(a, vec, stream);

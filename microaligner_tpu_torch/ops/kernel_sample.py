@@ -2,8 +2,9 @@
 and K5, the same for N planes that share one displacement field.
 
 Replaces ``microaligner_tpu/ops/pallas_sample.py::pallas_sample_displaced``
-(Pallas body ``_kernel_batched``), which every per-level warp, the Warper,
-the tiled flow composition and the per-plane apply go through.
+(Pallas body ``_kernel_batched``), which the tiled flow composition and the
+affine warps go through; the band warps of the Warper, the per-level warps
+and the per-plane apply take K5's band entry at one plane (below).
 
 Taps outside the image read zero (``cv.remap`` with BORDER_CONSTANT).  The
 displacement is split into ``floor`` and fraction before it is added to the
@@ -11,9 +12,10 @@ pixel position, so the weights stay exact at 20k widths, where an absolute
 f32 coordinate would keep only 2**-9 px.
 
 On the H100 the kernel (``csrc/sample.cu``) is bound by bytes: it reads fx,
-fy and four taps and writes one f32 per pixel.  One thread per pixel gathers
-its taps directly, so it is exact for any displacement and needs none of the
-TPU kernel's band of shifted views or its exact-gather fallback.
+fy and four taps and writes one f32 per pixel.  A thread owns 4 outputs and
+issues all their flow loads, then all 16 gathers, which it makes directly,
+so it is exact for any displacement and needs none of the TPU kernel's band
+of shifted views or its exact-gather fallback.
 
 The output may be a window: ``fx``/``fy`` of (N, oh, ow) whose row 0 is row
 ``row0`` of the (N, H, W) image (output pixel (x, y) samples the image at
@@ -29,9 +31,12 @@ block reads the flow and computes its outputs' taps once, stages each
 plane's window of taps in shared memory (or gathers straight from global
 memory where a flow tears the tile apart), and sums every plane from it;
 each plane equals a K1 launch on it bit for bit.  :func:`sample_band_multi`
-is the same kernel typed in and out: one band of the z-stack apply, read
-from the stored planes and rounded into the output (``round_to_dtype``),
-with the band's halo read as zeros.
+is the same kernel typed in and out: one band of a band warp of N planes
+(the z-stack apply) or of one plane (the Warper, the per-plane apply, the
+banded Farneback's post-warp), read from the stored planes and rounded
+into the output (``round_to_dtype``), with the band's halo read as zeros.
+At one plane it was faster on the H100 than a typed band entry of K1's own
+(``PERF.md``).
 """
 
 from __future__ import annotations
@@ -45,8 +50,6 @@ from microaligner_tpu_torch.ops.pad import zero_pad
 __all__ = [
     "sample_displaced",
     "sample_displaced_plain",
-    "sample_band",
-    "sample_band_plain",
     "sample_displaced_multi",
     "sample_displaced_multi_plain",
     "sample_band_multi",
@@ -55,6 +58,7 @@ __all__ = [
 ]
 
 _IDX_LIMIT = 2**30  # floor(displacement) is clamped to this before indexing
+K1_TILE = (16, 64)  # output rows and columns of a K1 block (csrc/sample.cu, k1::kTileH, kTileW)
 
 
 def bilinear_taps(flat: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
@@ -110,34 +114,6 @@ def sample_displaced_plain(img: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor
 sample_displaced_plain.calls = 0
 
 
-# dtypes K1 and K5 read and write, by their code in csrc/sample.cu
-DTYPE_CODES = {torch.uint8: 0, torch.int8: 1, torch.uint16: 2, torch.int16: 3, torch.int32: 4,
-               torch.float32: 5}
-K1_TILE = (16, 64)  # output rows and columns of a K1 block (csrc/sample.cu, k1: 8 * kRows x kTileW)
-K1_VARIANT = 0  # the design variant of csrc/sample.cu::k1::launch_variant that a launch takes
-
-
-def _launch(name, img, fx, fy, fplane, fstride, fpitch, fsign, out, oplane, opitch, rows, cols, row0,
-            lo, hi) -> bool:
-    """One K1 launch; ``fx``/``fy``/``out`` are tensors whose first element
-    is output (0, 0)'s.  Returns whether it launched (nothing to write
-    launches nothing)."""
-    n, h, w = img.shape
-    if n == 0 or rows == 0 or cols == 0:
-        return False
-    cuda_lib.check_grid(name, n, -(-rows // K1_TILE[0]))
-    pair = fstride == 2 and fy.data_ptr() == fx.data_ptr() + 4 and fx.data_ptr() % 8 == 0 and fpitch % 2 == 0
-    cuda_lib.call("ma_sample", img.device, img, fx, fy, fplane, fstride, fpitch, fsign, int(pair), out,
-                  oplane, opitch, n, h, w, rows, cols, row0, lo, hi, DTYPE_CODES[img.dtype], K1_VARIANT)
-    return True
-
-
-def _check_offsets(name, *sizes):
-    """Raise unless every in-plane offset the kernel forms fits 32 bits."""
-    if max(sizes) >= 2**31:
-        raise ValueError(f"{name}: {max(sizes)} elements in a plane exceed K1's 32-bit offsets")
-
-
 def _check(img, fx, fy, row0):
     if img.dim() != 3 or fx.dim() != 3:
         raise ValueError(f"sample_displaced takes (N, H, W) tensors, got {tuple(img.shape)}")
@@ -156,7 +132,9 @@ def _check(img, fx, fy, row0):
         raise ValueError(f"sample_displaced: {tuple(fx.shape)} displacements for "
                          f"{tuple(img.shape)} images at row {row0}")
     h, w = img.shape[1:]
-    _check_offsets("sample_displaced", (h + 1) * w + 1, fx.shape[1] * fx.shape[2])
+    if max((h + 1) * w + 1, fx.shape[1] * fx.shape[2]) >= 2**31:
+        raise ValueError(f"sample_displaced: planes of {tuple(img.shape[1:])} and {tuple(fx.shape[1:])} "
+                         "exceed K1's 32-bit offsets inside a plane")
 
 
 def sample_displaced(img: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor,
@@ -172,143 +150,17 @@ def sample_displaced(img: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor,
     if img.device.type == "cpu":
         return sample_displaced_plain(img, fx, fy, row0)
     cuda_lib.require_cuda(img, fx, fy)
-    h = img.shape[1]
+    n, h, w = img.shape
     oh, ow = fx.shape[1:]
     out = torch.empty_like(fx)
-    if _launch("sample_displaced", img, fx, fy, oh * ow, 1, ow, 1.0, out, oh * ow, ow, oh, ow, row0, 0, h):
+    if n and oh and ow:
+        cuda_lib.check_grid("sample_displaced", n, -(-oh // K1_TILE[0]))
+        cuda_lib.call("ma_sample_displaced", img.device, img, fx, fy, out, n, h, w, oh, ow, row0)
         sample_displaced.launches += 1
     return out
 
 
 sample_displaced.launches = 0
-
-
-def band_bounds(h: int, row0: int, rows: int, overlap: int) -> tuple[int, int, int]:
-    """(interior rows, first and one past the last source row) of the band
-    of ``rows`` interior rows at ``row0`` with ``overlap`` rows of halo."""
-    return min(rows, h - row0), max(row0 - overlap, 0), min(row0 + rows + overlap, h)
-
-
-def _band_flow(flow, row0, rows, o, w):
-    """The band's flow planes in the band's slab coordinates: the slab pair
-    as given, or the interior rows of the (H, W, 2) field zero-padded to the
-    slab (``_warp_banded``'s composition)."""
-    if isinstance(flow, tuple):
-        return flow
-    n_in = min(rows, flow.shape[0] - row0)
-    return (zero_pad(flow[row0 : row0 + n_in, :, 0], o, rows - n_in + o, o, o),
-            zero_pad(flow[row0 : row0 + n_in, :, 1], o, rows - n_in + o, o, o))
-
-
-def sample_band_plain(img: torch.Tensor, flow, out: torch.Tensor, row0: int, rows: int,
-                      overlap: int) -> torch.Tensor:
-    """Plain version of :func:`sample_band`: the band's slab of the zero
-    canvas (``band_slab``), pulled by the band's flow in slab coordinates
-    through K1's plain version; the interior rounded into ``out``."""
-    from microaligner_tpu_torch.optflow.flow_calc import band_slab  # optflow imports this module
-
-    sample_band_plain.calls += 1
-    o = overlap
-    h, w = img.shape
-    n_in = band_bounds(h, row0, rows, o)[0]
-    fx, fy = _band_flow(flow, row0, rows, o, w)
-    warped = sample_displaced_plain(band_slab(img, row0, rows, o)[None], -fx[None], -fy[None])[0]
-    out[row0 : row0 + n_in] = round_to_dtype(warped[o : o + n_in, o : o + w], out.dtype)
-    return out
-
-
-sample_band_plain.calls = 0
-
-
-def _check_band_window(name, shape, row0, rows, overlap):
-    if not (0 <= row0 < shape[0] and rows >= 1 and overlap >= 0):
-        raise ValueError(f"{name}: band at row {row0} of {rows} rows and overlap {overlap} is outside "
-                         f"{shape[0]} rows")
-
-
-def _check_typed(name, img, out, lead):
-    """Planes and output of one of ``DTYPE_CODES``, of one shape, with
-    ``lead`` dims before (H, W)."""
-    if img.dim() != lead + 2 or out.shape != img.shape:
-        raise ValueError(f"{name} takes {'(N, H, W)' if lead else '(H, W)'} planes and output, got "
-                         f"{tuple(img.shape)} and {tuple(out.shape)}")
-    if img.dtype not in DTYPE_CODES or out.dtype != img.dtype:
-        raise TypeError(f"{name}: {img.dtype} planes into {out.dtype} are not taken "
-                        f"(one dtype of {sorted(map(str, DTYPE_CODES))} in and out)")
-
-
-def _check_same_device_contiguous(name, **tensors):
-    first = next(iter(tensors.values()))
-    for key, t in tensors.items():
-        if t.device != first.device:
-            raise ValueError(f"{name}: {key} on {t.device}, not {first.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {key} must be contiguous")
-
-
-def _check_sample_band(img, flow, out, row0, rows, overlap):
-    _check_typed("sample_band", img, out, 0)
-    h, w = img.shape
-    o = overlap
-    _check_band_window("sample_band", img.shape, row0, rows, overlap)
-    if isinstance(flow, tuple):
-        if len(flow) != 2:
-            raise ValueError(f"sample_band: a slab flow is a pair (fx, fy), got {len(flow)} tensors")
-        want = (rows + 2 * o, w + 2 * o)
-        named = {"fx": flow[0], "fy": flow[1]}
-    else:
-        want = (h, w, 2)
-        named = {"flow": flow}
-    for key, t in named.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"sample_band: {key} must be float32, got {t.dtype}")
-        if tuple(t.shape) != want:
-            raise ValueError(f"sample_band: {key} {tuple(t.shape)} is not {want}")
-    _check_same_device_contiguous("sample_band", img=img, out=out, **named)
-    _check_offsets("sample_band", (h + 1) * w + 1, *(t.numel() for t in named.values()))
-
-
-def sample_band(img: torch.Tensor, flow, out: torch.Tensor, row0: int, rows: int,
-                overlap: int) -> torch.Tensor:
-    """One band of the Warper's banded warp of one plane in one K1 launch,
-    typed in and out.
-
-    Writes rows ``[row0, row0 + n_in)`` of (H, W) ``out`` (``n_in`` the
-    band's interior rows, fewer in the last band):
-    ``round_to_dtype(bilinear img(p - flow(p)), out.dtype)`` for the (H, W)
-    plane in its stored dtype (``out``'s, one of ``DTYPE_CODES``).  Taps on
-    source rows outside ``[row0 - overlap, row0 + rows + overlap)`` or
-    outside the image read zero, as the zero canvas of ``band_slab`` gives.
-    ``flow`` is the (H, W, 2) float32 field, or the band's own pair
-    ``(fx, fy)`` in slab coordinates: (rows + 2 overlap, W + 2 overlap)
-    float32 planes whose pixel (x + overlap, y + overlap) is the band's
-    interior pixel (x, y) (the banded Farneback's flow; its halo is not
-    read).  Returns ``out``.
-
-    A CPU tensor takes the plain version; a CUDA tensor launches K1 or
-    raises.
-    """
-    _check_sample_band(img, flow, out, row0, rows, overlap)
-    if img.device.type == "cpu":
-        return sample_band_plain(img, flow, out, row0, rows, overlap)
-    tensors = flow if isinstance(flow, tuple) else (flow,)
-    cuda_lib.require_cuda(img, out, *tensors)
-    h, w = img.shape
-    o = overlap
-    n_in, lo, hi = band_bounds(h, row0, rows, o)
-    if isinstance(flow, tuple):
-        fx, fy = flow[0][o, o:], flow[1][o, o:]
-        fstride, fpitch = 1, w + 2 * o
-    else:
-        fx, fy = flow[row0], flow[row0, :, 1]
-        fstride, fpitch = 2, 2 * w
-    if _launch("sample_band", img[None], fx, fy, 0, fstride, fpitch, -1.0, out[row0], 0, w, n_in, w, row0,
-               lo, hi):
-        sample_band.launches += 1
-    return out
-
-
-sample_band.launches = 0
 
 
 def sample_displaced_multi_plain(imgs: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor) -> torch.Tensor:
@@ -322,15 +174,20 @@ def sample_displaced_multi_plain(imgs: torch.Tensor, fx: torch.Tensor, fy: torch
 
 sample_displaced_multi_plain.calls = 0
 
+# dtypes K5 reads and writes, by their code in csrc/sample.cu
+DTYPE_CODES = {torch.uint8: 0, torch.int8: 1, torch.uint16: 2, torch.int16: 3, torch.int32: 4,
+               torch.float32: 5}
+
 K5_TILE = (16, 64)  # output rows and columns of a K5 block (csrc/sample.cu, k5::kTileH, kTileW)
 
 
-def _launch_multi(name, imgs, fx, fy, fstride, fsign, out, row0, rows, lo, hi, staged) -> bool:
+def _launch_multi(name, imgs, fx, fy, fstride, fpitch, fsign, out, row0, rows, lo, hi, staged) -> bool:
     """One K5 launch writing rows [row0, row0 + rows) of every plane of
-    ``out``; ``fx``/``fy`` are tensors whose first element is pixel 0's.
-    Returns whether it launched (nothing to write launches nothing)."""
+    ``out``; ``fx``/``fy`` are tensors whose first element is output row
+    ``row0``'s first pixel's, ``fpitch`` elements a row.  Returns whether it
+    launched (nothing to write launches nothing)."""
     n, h, w = imgs.shape
-    if (h + K5_TILE[0]) * w >= 2**31:
+    if max((h + K5_TILE[0]) * w, (rows + K5_TILE[0]) * fpitch) >= 2**31:
         raise ValueError(f"{name}: planes of {h} x {w} exceed K5's 32-bit offsets inside a plane")
     if staged is not None and (staged.dtype != torch.int32 or staged.device != imgs.device):
         raise ValueError(f"{name}: staged must be an int32 tensor on {imgs.device}")
@@ -340,7 +197,7 @@ def _launch_multi(name, imgs, fx, fy, fstride, fsign, out, row0, rows, lo, hi, s
     # the staged windows' 16-byte copies need a row stride and a base on 16 bytes; without
     # them every tile gathers from global memory (the direct branch)
     vec = (w * imgs.element_size()) % 16 == 0 and imgs.data_ptr() % 16 == 0
-    cuda_lib.call("ma_sample_multi", imgs.device, imgs, fx, fy, fstride, fsign, out, n, h, w,
+    cuda_lib.call("ma_sample_multi", imgs.device, imgs, fx, fy, fstride, fpitch, fsign, out, n, h, w,
                   row0, rows, lo, hi, DTYPE_CODES[imgs.dtype], int(vec), staged)
     return True
 
@@ -377,7 +234,7 @@ def sample_displaced_multi(imgs: torch.Tensor, fx: torch.Tensor, fy: torch.Tenso
     cuda_lib.require_cuda(imgs, fx, fy)
     n, h, w = imgs.shape
     out = torch.empty_like(imgs)
-    if _launch_multi("sample_displaced_multi", imgs, fx, fy, 1, 1.0, out, 0, h, 0, h, staged):
+    if _launch_multi("sample_displaced_multi", imgs, fx, fy, 1, w, 1.0, out, 0, h, 0, h, staged):
         sample_displaced_multi.launches += 1
     return out
 
@@ -385,11 +242,19 @@ def sample_displaced_multi(imgs: torch.Tensor, fx: torch.Tensor, fy: torch.Tenso
 sample_displaced_multi.launches = 0
 
 
-def sample_band_multi_plain(imgs: torch.Tensor, flow: torch.Tensor, out: torch.Tensor,
+def band_bounds(h: int, row0: int, rows: int, overlap: int) -> tuple[int, int, int]:
+    """(interior rows, first and one past the last source row) of the band
+    of ``rows`` interior rows at ``row0`` with ``overlap`` rows of halo."""
+    return min(rows, h - row0), max(row0 - overlap, 0), min(row0 + rows + overlap, h)
+
+
+def sample_band_multi_plain(imgs: torch.Tensor, flow, out: torch.Tensor,
                             row0: int, rows: int, overlap: int) -> torch.Tensor:
     """Plain version of :func:`sample_band_multi`: the band's slab of the
-    zero canvas (``band_slab``), pulled by the band's flow zero-padded to the
-    slab, through K5's plain version; the interior rounded into ``out``."""
+    zero canvas (``band_slab``), pulled by the band's flow in slab
+    coordinates (the (H, W, 2) field's band rows zero-padded to the slab, or
+    the slab pair as given) through K5's plain version; the interior rounded
+    into ``out``."""
     from microaligner_tpu_torch.optflow.flow_calc import band_slab  # optflow imports this module
 
     sample_band_multi_plain.calls += 1
@@ -397,8 +262,11 @@ def sample_band_multi_plain(imgs: torch.Tensor, flow: torch.Tensor, out: torch.T
     h, w = imgs.shape[1:]
     n_in = band_bounds(h, row0, rows, o)[0]
     src = band_slab(imgs, row0, rows, o)
-    fx = zero_pad(flow[row0 : row0 + n_in, :, 0], o, rows - n_in + o, o, o)
-    fy = zero_pad(flow[row0 : row0 + n_in, :, 1], o, rows - n_in + o, o, o)
+    if isinstance(flow, tuple):
+        fx, fy = flow
+    else:
+        fx = zero_pad(flow[row0 : row0 + n_in, :, 0], o, rows - n_in + o, o, o)
+        fy = zero_pad(flow[row0 : row0 + n_in, :, 1], o, rows - n_in + o, o, o)
     warped = sample_displaced_multi_plain(src, -fx, -fy)
     out[:, row0 : row0 + n_in] = round_to_dtype(warped[:, o : o + n_in, o : o + w], out.dtype)
     return out
@@ -414,33 +282,46 @@ def _check_band(imgs, flow, out, row0, rows, overlap):
     if imgs.dtype not in DTYPE_CODES or out.dtype != imgs.dtype:
         raise TypeError(f"sample_band_multi: {imgs.dtype} planes into {out.dtype} are not taken "
                         f"(one dtype of {sorted(map(str, DTYPE_CODES))} in and out)")
-    if flow.dtype != torch.float32:
-        raise TypeError(f"sample_band_multi: flow must be float32, got {flow.dtype}")
-    if flow.shape != imgs.shape[1:] + (2,):
-        raise ValueError(f"sample_band_multi: flow {tuple(flow.shape)} is not "
-                         f"{tuple(imgs.shape[1:]) + (2,)}")
-    for name, t in (("imgs", imgs), ("flow", flow), ("out", out)):
+    h, w = imgs.shape[1:]
+    if isinstance(flow, tuple):
+        if len(flow) != 2:
+            raise ValueError(f"sample_band_multi: a slab flow is a pair (fx, fy), got {len(flow)} tensors")
+        flows, want = dict(zip(("fx", "fy"), flow)), (rows + 2 * overlap, w + 2 * overlap)
+    else:
+        flows, want = {"flow": flow}, (h, w, 2)
+    for name, t in flows.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"sample_band_multi: {name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != want:
+            raise ValueError(f"sample_band_multi: {name} {tuple(t.shape)} is not {want}")
+    for name, t in (("imgs", imgs), ("out", out), *flows.items()):
         if t.device != imgs.device:
             raise ValueError(f"sample_band_multi: {name} on {t.device}, imgs on {imgs.device}")
         if not t.is_contiguous():
             raise ValueError(f"sample_band_multi: {name} must be contiguous")
-    if not (0 <= row0 < imgs.shape[1] and rows >= 1 and overlap >= 0):
+    if not (0 <= row0 < h and rows >= 1 and overlap >= 0):
         raise ValueError(f"sample_band_multi: band at row {row0} of {rows} rows and overlap "
-                         f"{overlap} is outside {imgs.shape[1]} rows")
+                         f"{overlap} is outside {h} rows")
 
 
-def sample_band_multi(imgs: torch.Tensor, flow: torch.Tensor, out: torch.Tensor, row0: int,
+def sample_band_multi(imgs: torch.Tensor, flow, out: torch.Tensor, row0: int,
                       rows: int, overlap: int, staged: torch.Tensor | None = None) -> torch.Tensor:
-    """One band of the z-stack apply in one K5 launch, typed in and out.
+    """One band of the banded warp of N planes by one flow in one K5 launch,
+    typed in and out: the z-stack apply and, with N = 1, the one-plane band
+    warps (the Warper, the per-plane apply, the banded Farneback's
+    post-warp).
 
     Writes rows ``[row0, row0 + n_in)`` of (N, H, W) ``out`` (``n_in`` the
     band's interior rows, fewer in the last band):
     ``round_to_dtype(bilinear imgs(p - flow(p)), out.dtype)`` for the
     (N, H, W) planes in their stored dtype (``out``'s, one of
-    ``DTYPE_CODES``) and the (H, W, 2) float32 flow.
-    Taps on source rows outside ``[row0 - overlap, row0 + rows + overlap)``
-    or outside the image read zero, as the zero canvas of ``band_slab``
-    gives.  Returns ``out``.
+    ``DTYPE_CODES``).  ``flow`` is the (H, W, 2) float32 field, or the
+    band's own pair ``(fx, fy)`` in slab coordinates: (rows + 2 overlap,
+    W + 2 overlap) float32 planes whose pixel (x + overlap, y + overlap) is
+    the band's interior pixel (x, y) (the banded Farneback's flow; its halo
+    is not read).  Taps on source rows outside
+    ``[row0 - overlap, row0 + rows + overlap)`` or outside the image read
+    zero, as the zero canvas of ``band_slab`` gives.  Returns ``out``.
 
     A CPU tensor takes the plain version; a CUDA tensor launches K5 or
     raises.  ``staged`` as for :func:`sample_displaced_multi`.
@@ -448,10 +329,16 @@ def sample_band_multi(imgs: torch.Tensor, flow: torch.Tensor, out: torch.Tensor,
     _check_band(imgs, flow, out, row0, rows, overlap)
     if imgs.device.type == "cpu":
         return sample_band_multi_plain(imgs, flow, out, row0, rows, overlap)
-    cuda_lib.require_cuda(imgs, flow, out)
-    n_in, lo, hi = band_bounds(imgs.shape[1], row0, rows, overlap)
-    if _launch_multi("sample_band_multi", imgs, flow, flow[..., 1], 2, -1.0, out, row0, n_in, lo, hi,
-                     staged):
+    h, w = imgs.shape[1:]
+    o = overlap
+    if isinstance(flow, tuple):
+        cuda_lib.require_cuda(imgs, out, *flow)
+        fx, fy, fstride, fpitch = flow[0][o, o:], flow[1][o, o:], 1, w + 2 * o
+    else:
+        cuda_lib.require_cuda(imgs, flow, out)
+        fx, fy, fstride, fpitch = flow[row0], flow[row0, :, 1], 2, 2 * w
+    n_in, lo, hi = band_bounds(h, row0, rows, o)
+    if _launch_multi("sample_band_multi", imgs, fx, fy, fstride, fpitch, -1.0, out, row0, n_in, lo, hi, staged):
         sample_band_multi.launches += 1
     return out
 

@@ -6,7 +6,8 @@ zero, so a sample straddling the border blends with zeros.
 
 Every displacement sample goes through K1 (:func:`sample_displaced`), an
 exact four-tap gather for any displacement; N planes that share one flow go
-through K5 (:func:`sample_displaced_multi`).  The JAX package's banded
+through K5 (:func:`sample_displaced_multi`), and so does each band of the
+banded warps of one or N planes, typed in and out (:func:`warp_band`).  The JAX package's banded
 gather-free sampler and the ``lax.cond`` that guarded it against large
 displacements existed only because gathers are slow on a TPU; they have no
 counterpart here.
@@ -31,7 +32,7 @@ from microaligner_tpu_torch.ops.kernel_sample import (
     DTYPE_CODES,
     band_bounds,
     bilinear_taps,
-    sample_band,
+    sample_band_multi,
     sample_displaced,
     sample_displaced_multi,
 )
@@ -91,22 +92,23 @@ def warp_with_flow_parts_batched(imgs: torch.Tensor, fx: torch.Tensor, fy: torch
     return sample_displaced(imgs.to(torch.float32).contiguous(), -fx, -fy)
 
 
-def warp_band(image: torch.Tensor, flow, out: torch.Tensor, row0: int, rows: int, overlap: int) -> None:
-    """One band of the Warper's banded warp of the (H, W) ``image`` into
-    rows ``[row0, row0 + n_in)`` of ``out``, rounded to ``out.dtype``
-    (:func:`sample_band`; ``flow`` is the (H, W, 2) field or the band's
-    slab-coordinate pair).  Where the image's dtype is ``out``'s and one of
-    the kernel's six, that is one launch that reads the stored plane and
-    writes the rounded rows; other pairs of dtype go through the float32
-    instantiation on the band's source rows as float32, then are rounded."""
-    if image.dtype == out.dtype and out.dtype in DTYPE_CODES:
-        sample_band(image, flow, out, row0, rows, overlap)
+def warp_band(imgs: torch.Tensor, flow, out: torch.Tensor, row0: int, rows: int, overlap: int) -> None:
+    """One band of the banded warp of the (N, H, W) planes ``imgs`` by one
+    flow into rows ``[row0, row0 + n_in)`` of ``out``, rounded to
+    ``out.dtype`` (:func:`sample_band_multi`; ``flow`` is the (H, W, 2) field
+    or the band's slab-coordinate pair).  Where the planes' dtype is
+    ``out``'s and one of the kernel's six, that is one launch that reads the
+    stored planes and writes the rounded rows; other pairs of dtype go
+    through the float32 instantiation on the band's source rows as float32,
+    then are rounded."""
+    if imgs.dtype == out.dtype and out.dtype in DTYPE_CODES:
+        sample_band_multi(imgs, flow, out, row0, rows, overlap)
         return
-    n_in, lo, hi = band_bounds(image.shape[0], row0, rows, overlap)
-    slab = image[lo:hi].to(torch.float32).contiguous()
+    n_in, lo, hi = band_bounds(imgs.shape[1], row0, rows, overlap)
+    slab = imgs[:, lo:hi].to(torch.float32).contiguous()
     band_flow = flow if isinstance(flow, tuple) else flow[lo:hi]
-    warped = sample_band(slab, band_flow, torch.empty_like(slab), row0 - lo, rows, overlap)
-    out[row0 : row0 + n_in] = round_to_dtype(warped[row0 - lo : row0 - lo + n_in], out.dtype)
+    warped = sample_band_multi(slab, band_flow, torch.empty_like(slab), row0 - lo, rows, overlap)
+    out[:, row0 : row0 + n_in] = round_to_dtype(warped[:, row0 - lo : row0 - lo + n_in], out.dtype)
 
 
 def warp_planes_with_flow(imgs: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:

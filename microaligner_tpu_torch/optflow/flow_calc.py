@@ -66,7 +66,7 @@ def _dense_banded_core(ref_img, mov_img, warp_src, grid: TileGrid, win_size: int
     """Per band: Farneback on the halo'd slab pair, interiors kept; with
     ``warp_src``, ``warp_src`` is also pulled by the band's flow (its halo
     is not read: only interiors are kept), rounded to ``out_dtype`` and
-    written into the band's rows, one K1 launch a band (``warp_band``, the
+    written into the band's rows, one K5 launch a band (``warp_band``, the
     band's flow in its slab coordinates).  Returns (fx, fy[, warped]), each
     (H, W)."""
     h, w, o = grid.height, grid.width, grid.overlap
@@ -82,7 +82,7 @@ def _dense_banded_core(ref_img, mov_img, warp_src, grid: TileGrid, win_size: int
         bm = band_slab(mov_img, row0, band_rows, o)
         fx, fy = _farneback_core_parts(bm[None], br[None], win_size, num_iter, 1, 1.7)
         if warp_src is not None:
-            warp_band(warp_src, (fx[0], fy[0]), warped, row0, band_rows, o)
+            warp_band(warp_src[None], (fx[0], fy[0]), warped[None], row0, band_rows, o)
         sl = (slice(None), slice(o, o + band_rows), slice(o, o + w))
         return fx[sl], fy[sl]
 

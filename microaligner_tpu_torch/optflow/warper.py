@@ -3,10 +3,10 @@
 PyTorch counterpart of ``microaligner_tpu/optflow/warper.py`` on its default
 (row-band) path.  A pixel pulls only from within its band's halo-expanded
 slab, so a displacement beyond ``overlap`` reads zeros, as in the
-reference's per-tile ``cv.remap``.  The one-plane band warp is one K1
-launch a band, typed in and out (``sample_band``); :func:`warp_planes_tiled`
-pulls N planes by one flow through K5, one launch a band, typed in and out;
-the tiled composition samples through K1's float32 entry.
+reference's per-tile ``cv.remap``.  The band warps of one plane
+(:func:`warp_tiled_dtype`) and of N planes by one flow
+(:func:`warp_planes_tiled`) are one K5 launch a band, typed in and out
+(``sample_band_multi``); the tiled composition samples through K1.
 """
 
 from __future__ import annotations
@@ -16,8 +16,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from microaligner_tpu_torch.ops.filters import round_to_dtype
-from microaligner_tpu_torch.ops.kernel_sample import DTYPE_CODES, band_bounds, sample_band_multi
 from microaligner_tpu_torch.ops.warp import compose_flows_batched, warp_band
 from microaligner_tpu_torch.optflow.flow_calc import band_rows_for
 from microaligner_tpu_torch.parallel import tile_map
@@ -37,21 +35,6 @@ __all__ = [
 _COMPOSE_BATCH = 32  # halo windows composed per chunk (bounds the live working set)
 
 
-def _warp_banded(image: torch.Tensor, flow: torch.Tensor, grid: TileGrid,
-                 out_dtype: torch.dtype, band_rows: int) -> torch.Tensor:
-    """Full-width row-band warp: each band's slab (zeros outside the image)
-    is pulled by the band's flow, zero on the halo; interiors are rounded to
-    ``out_dtype`` and kept.  One K1 launch a band (:func:`warp_band`) where
-    the image's dtype is ``out_dtype``: nothing but the output is
-    allocated."""
-    image = image.contiguous()
-    flow = flow.to(torch.float32).contiguous()
-    out = torch.empty((grid.height, grid.width), dtype=out_dtype, device=image.device)
-    for row0 in range(0, grid.height, band_rows):
-        warp_band(image, flow, out, row0, band_rows, grid.overlap)
-    return out
-
-
 def warp_tiled(image: torch.Tensor, flow: torch.Tensor, grid: TileGrid,
                band_rows: Optional[int] = None) -> torch.Tensor:
     """Warp (H, W) ``image`` by (H, W, 2) ``flow`` band by band; f32 output."""
@@ -61,8 +44,12 @@ def warp_tiled(image: torch.Tensor, flow: torch.Tensor, grid: TileGrid,
 def warp_tiled_dtype(image: torch.Tensor, flow: torch.Tensor, grid: TileGrid,
                      dtype: torch.dtype, band_rows: Optional[int] = None) -> torch.Tensor:
     """:func:`warp_tiled` rounded half to even and clipped to ``dtype``
-    (``cv.remap`` on integer images), inside each band."""
-    return _warp_banded(image, flow, grid, dtype, band_rows_for(grid, band_rows))
+    (``cv.remap`` on integer images), inside each band: each band's slab
+    (zeros outside the image) is pulled by the band's flow, zero on the
+    halo, and its interior kept.  :func:`warp_planes_tiled` on one plane:
+    one K5 launch a band where the image's dtype is ``dtype``, nothing
+    allocated but the output."""
+    return warp_planes_tiled(image[None], flow, grid, dtype, band_rows)[0]
 
 
 def warp_planes_tiled(imgs: torch.Tensor, flow: torch.Tensor, grid: TileGrid,
@@ -74,27 +61,19 @@ def warp_planes_tiled(imgs: torch.Tensor, flow: torch.Tensor, grid: TileGrid,
     per-band halo semantics of :func:`warp_tiled_dtype` for every plane: each
     band's slab of the zero canvas (padded to a whole number of bands) is
     pulled by the band's flow, which is zero on the halo.  One K5 launch a
-    band (:func:`sample_band_multi`) reads the planes in their stored dtype
-    and writes the band's rounded rows into the output, so nothing but the
-    output is allocated.  Other pairs of stored and output dtype go through
-    the kernel's float32 instantiation one band's slab at a time, then are
-    rounded: one slab of float32 planes and its result live at once.
+    band (:func:`warp_band`, ``sample_band_multi``) reads the planes in their
+    stored dtype and writes the band's rounded rows into the output, so
+    nothing but the output is allocated.  Other pairs of stored and output
+    dtype go through the kernel's float32 instantiation one band's slab at a
+    time, then are rounded: one slab of float32 planes and its result live
+    at once.
     """
     flow = flow.to(torch.float32).contiguous()
-    h, o = grid.height, grid.overlap
+    imgs = imgs.contiguous()
     rows = band_rows_for(grid, band_rows)
-    out = torch.empty((imgs.shape[0], h, grid.width), dtype=dtype, device=imgs.device)
-    typed = imgs.dtype == dtype and dtype in DTYPE_CODES
-    if typed:
-        imgs = imgs.contiguous()
-    for row0 in range(0, h, rows):
-        if typed:
-            sample_band_multi(imgs, flow, out, row0, rows, o)
-            continue
-        n_in, lo, hi = band_bounds(h, row0, rows, o)
-        slab = imgs[:, lo:hi].to(torch.float32).contiguous()
-        warped = sample_band_multi(slab, flow[lo:hi].contiguous(), torch.empty_like(slab), row0 - lo, rows, o)
-        out[:, row0 : row0 + n_in] = round_to_dtype(warped[:, row0 - lo : row0 - lo + n_in], dtype)
+    out = torch.empty((imgs.shape[0], grid.height, grid.width), dtype=dtype, device=imgs.device)
+    for row0 in range(0, grid.height, rows):
+        warp_band(imgs, flow, out, row0, rows, grid.overlap)
     return out
 
 

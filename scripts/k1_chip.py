@@ -1,9 +1,8 @@
 #!/usr/bin/env python3
-"""K1 alone on one NVIDIA GPU: its float32 entry and the one-plane band
-warps around it, timed, with ``chip_smoke.py``'s K1 phases where the
-checkout has them.
+"""K1 alone on one NVIDIA GPU, and the one-plane band warps: timed, with
+``chip_smoke.py``'s phases for them where the checkout has them.
 
-    python3 scripts/k1_chip.py [--root DIR] [--label NAME] [--variants]
+    python3 scripts/k1_chip.py [--root DIR] [--label NAME]
 
 ``--root`` is the checkout whose port is measured (default: this script's
 repository), so that two commits can be timed in one run on one card:
@@ -19,13 +18,12 @@ parent, change, change, parent, one process each.  For each checkout:
   ``warp_device`` of one u16 4096^2 plane under the z-stack apply's smooth
   flow (tile 1000, overlap 100: one band).
 
-Where the checkout has K1's band entry, also ``chip_smoke``'s
-``k1_build_lines`` and ``check_k1_band`` (bit for bit against the plain
-version, timed against it, K5 at one plane and the bound); with
-``--variants``, each design variant of ``csrc/sample.cu::k1::launch_variant``
-(``kernel_sample.K1_VARIANT``), held bit for bit to the plain version and
-timed at the same inputs.  The numbers go to
-``chiprun_out/k1_chip_<label>.json``; the last line is a summary.
+Where the checkout has them, also ``chip_smoke``'s ``k1_build_lines`` and
+``check_one_plane_band`` (the band warps' entry, K5 at one plane, bit for
+bit against its plain version, timed against it and its bound).  K1's
+float32 entry is held bit for bit to its plain version at every input.
+The numbers go to ``chiprun_out/k1_chip_<label>.json``; the last line is
+a summary.
 """
 
 from __future__ import annotations
@@ -38,9 +36,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-
-VARIANTS = {0: "4 outputs a thread", 1: "4 outputs, L1 prefetch of the image under each output",
-            2: "4 outputs, L2 prefetch", 3: "2 outputs a thread"}
 
 
 def k1_inputs(cs, dev, rng, h, w):
@@ -59,33 +54,23 @@ def k1_inputs(cs, dev, rng, h, w):
     return (mov / 255).contiguous(), {"k3": (-rx, -ry), "random": (big[0:1].contiguous(), big[1:2].contiguous())}
 
 
-def time_k1(cs, dev, rng, variants) -> dict:
+def time_k1(cs, dev, rng) -> dict:
     from microaligner_tpu_torch.ops import kernel_sample as ks
 
     res = {}
-    for h, w, label in cs.BAND_SHAPES:
+    for h, w, _ in cs.BAND_SHAPES:
         img, flows = k1_inputs(cs, dev, rng, h, w)
         for kind, (fx, fy) in flows.items():
-            key = f"{h}x{w} {kind}"
             grid = cs.sample_grid(fx, fy)
-            want = ks.sample_displaced_plain(img, fx, fy)
-            row = {}
-            for v in variants:
-                if v is not None:
-                    ks.K1_VARIANT = v
-                got = ks.sample_displaced(img, fx, fy)
-                row[f"bit_equal_{v}"] = bool(torch.equal(got, want))
-                # kernel, grid_sample, kernel
-                k_1 = cs.cuda_ms(lambda: ks.sample_displaced(img, fx, fy), 20)
-                lib = cs.cuda_ms(lambda: cs.grid_sample_call(img[:, None], grid), 20)
-                k_2 = cs.cuda_ms(lambda: ks.sample_displaced(img, fx, fy), 20)
-                row[f"ms_{v}"], row[f"grid_sample_ms_{v}"] = min(k_1, k_2), lib
-                print(f"[k1] {key} variant {v}: kernel {min(k_1, k_2):.4f} ms, grid_sample {lib:.4f} ms, "
-                      f"bit-equal {row[f'bit_equal_{v}']}", flush=True)
-            if variants != [None]:
-                ks.K1_VARIANT = 0
-            res[key] = row
-            del grid, want, got
+            cs.require(torch.equal(ks.sample_displaced(img, fx, fy), ks.sample_displaced_plain(img, fx, fy)),
+                       f"K1 {h}x{w} {kind}: not bit-equal to its plain version")
+            # kernel, grid_sample, kernel
+            k_1 = cs.cuda_ms(lambda: ks.sample_displaced(img, fx, fy), 20)
+            lib = cs.cuda_ms(lambda: cs.grid_sample_call(img[:, None], grid), 20)
+            k_2 = cs.cuda_ms(lambda: ks.sample_displaced(img, fx, fy), 20)
+            res[f"{h}x{w} {kind}"] = {"ms": min(k_1, k_2), "grid_sample_ms": lib}
+            print(f"[k1] {h}x{w} {kind} flow: kernel {min(k_1, k_2):.4f} ms, grid_sample {lib:.4f} ms", flush=True)
+            del grid
         del img, flows
     return res
 
@@ -117,38 +102,16 @@ def time_apply(cs, dev, rng, n=4096, tile=1000, overlap=100) -> dict:
     return res
 
 
-def time_band_variants(cs, dev, rng, variants, n=4096, overlap=100) -> dict:
-    """The band entry on a u16 n^2 plane (one band) for each variant,
-    against its plain version bit for bit."""
-    from microaligner_tpu_torch.ops import kernel_sample as ks
-
-    plane = torch.from_numpy(rng.integers(0, 65535, (n, n)).astype(np.uint16)).to(dev)
-    flow = torch.stack(cs.smooth_flow(n, n, dev), dim=-1).contiguous()
-    out = torch.empty_like(plane)
-    want = ks.sample_band_plain(plane, flow, torch.empty_like(plane), 0, n, overlap)
-    res = {}
-    for v in variants:
-        ks.K1_VARIANT = v
-        got = ks.sample_band(plane, flow, torch.empty_like(plane), 0, n, overlap)
-        ms = min(cs.cuda_ms(lambda: ks.sample_band(plane, flow, out, 0, n, overlap), 20) for _ in range(2))
-        res[v] = {"ms": ms, "bit_equal": bool(torch.equal(got, want))}
-        print(f"[k1] band entry u16 {n}^2 smooth flow, variant {v}: {ms:.4f} ms, bit-equal {res[v]['bit_equal']}",
-              flush=True)
-    ks.K1_VARIANT = 0
-    return res
-
-
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent.parent))
     ap.add_argument("--label", default="change")
-    ap.add_argument("--variants", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("k1_chip: needs an NVIDIA GPU")
     sys.path.insert(0, str(Path(args.root).resolve()))
     import chip_smoke as cs
-    from microaligner_tpu_torch.ops import cuda_lib, kernel_sample as ks
+    from microaligner_tpu_torch.ops import cuda_lib
 
     dev = torch.device("cuda", 0)
     res = {"label": args.label, "root": args.root, "device": cs.nvidia_smi()}
@@ -156,21 +119,17 @@ def main() -> int:
     _, ptxas = cuda_lib.build(verbose=True)
     cuda_lib.library()
     res["build_s"] = time.perf_counter() - t0
-    banded = hasattr(ks, "sample_band")
-    rng = np.random.default_rng(20261016)
-    if banded:
-        res["k1_build"] = cs.k1_build_lines(ptxas)
-        res["k1_band"] = cs.check_k1_band(dev, rng)
-    variants = sorted(VARIANTS) if args.variants and banded else [None]
-    res["k1"] = time_k1(cs, dev, rng, variants)
+    rng = np.random.default_rng(20261016)  # the same inputs in every checkout
+    res["k1"] = time_k1(cs, dev, rng)
     res["apply"] = time_apply(cs, dev, rng)
-    if banded and args.variants:
-        res["band_variants"] = time_band_variants(cs, dev, rng, variants)
+    if hasattr(cs, "check_one_plane_band"):
+        res["k1_build"] = cs.k1_build_lines(ptxas)
+        res["one_plane_band"] = cs.check_one_plane_band(dev, rng)
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
     (out / f"k1_chip_{args.label}.json").write_text(json.dumps(res, indent=1, default=str))
     print(json.dumps({"label": args.label, "device": res["device"], "apply": res["apply"],
-                      "k1": {k: {m: v for m, v in row.items() if m.startswith("ms")} for k, row in res["k1"].items()}},
+                      "k1": {k: row["ms"] for k, row in res["k1"].items()}},
                      default=str))
     return 0
 

@@ -1,18 +1,20 @@
-"""K1's band entry and the one-plane band warps that launch it once a band.
+"""The one-plane band warps, one launch of K5's band entry a band.
 
-``sample_band`` reads one (H, W) plane in its stored dtype, pulls it by the
-(H, W, 2) flow (or a band's own flow in slab coordinates) and rounds into
-the output's band rows.  ``_warp_banded`` (``warp_tiled_dtype``,
-``Warper.warp_device``, the registrator's pre- and post-warps),
-``_apply_flow_plane`` and the banded Farneback's post-warp call it once a
-band.  On the CPU it takes its plain version, which is the composition
-these warps used before it (an f32 slab of the zero canvas, zero-padded
-flow slabs, K1 on the negated flow, crop, ``round_to_dtype``), so:
+``sample_band_multi`` reads (N, H, W) planes in their stored dtype, pulls
+them by the (H, W, 2) flow (or a band's own flow in slab coordinates) and
+rounds into the output's band rows.  With N = 1 it is the band entry of
+``warp_tiled_dtype`` (``Warper.warp_device``, the registrator's pre- and
+post-warps), ``_apply_flow_plane`` and the banded Farneback's post-warp,
+which call it once a band: on the H100, K5 at one plane was faster than a
+typed band entry of K1's own (``PERF.md``).  On the CPU it takes its
+plain version, which is the composition these warps used before (an f32
+slab of the zero canvas, zero-padded flow slabs, K1 on the negated flow,
+crop, ``round_to_dtype``), so:
 
-* ``sample_band``'s plain version equals that composition bit for bit, for
-  all six dtypes, several band heights and a last band shorter than the
-  rest, and for the banded Farneback's post-warp (whose halo flow the old
-  composition zeroed);
+* the band warps equal that composition bit for bit, for all six dtypes,
+  several band heights and a last band shorter than the rest, and the
+  banded Farneback's post-warp equals its previous composition (whose halo
+  flow it zeroed);
 * against the JAX package: ``warp_tiled_dtype``, ``Warper.warp_device``
   and ``_apply_flow_plane`` with the bars of ``tests/test_warp_planes.py``
   and ``tests/test_torch_optflow_engine.py`` (u16 within 1 level at < 1%
@@ -21,7 +23,8 @@ flow slabs, K1 on the negated flow, crop, ``round_to_dtype``), so:
   within 1e-4), and the banded Farneback with its post-warp (flow mean <
   1e-4 and max < 1e-2 px, the warped plane within 2 levels on >= 99.9% of
   pixels, as the existing tests hold them);
-* one call a band, no K5 and no float32 K1 call, and the wrapper's checks.
+* one call a band and nothing else that samples, and the slab flow's
+  checks.
 """
 
 import contextlib
@@ -142,7 +145,7 @@ def test_post_warp_plain_equals_previous_composition():
         fx, fy = _farneback_core_parts(band_slab(img, row0, rows, o)[None], band_slab(ref, row0, rows, o)[None],
                                        15, 2, 1, 1.7)
         fx, fy = fx * 6, fy * 6  # displacements of several pixels
-        ks.sample_band(img, (fx[0], fy[0]), got, row0, rows, o)
+        ks.sample_band_multi(img[None], (fx[0], fy[0]), got[None], row0, rows, o)
         warped = warp_with_flow_parts_batched(band_slab(img, row0, rows, o)[None], fx * interior, fy * interior)
         want[row0 : row0 + n_in] = round_to_dtype(warped[0, o : o + n_in, o : o + W], torch.uint16)
     assert torch.equal(got, want)
@@ -198,8 +201,8 @@ def test_dense_banded_post_warp_matches_jax(band_rows):
 
 
 def _counts():
-    return (ks.sample_band_plain.calls, ks.sample_band.launches, ks.sample_displaced.launches,
-            ks.sample_band_multi_plain.calls, ks.sample_band_multi.launches)
+    return (ks.sample_band_multi_plain.calls, ks.sample_band_multi.launches, ks.sample_displaced.launches,
+            ks.sample_displaced_plain.calls, ks.sample_displaced_multi.launches)
 
 
 @pytest.mark.parametrize("band_rows", [None, 64, 50])
@@ -229,35 +232,27 @@ def test_one_band_entry_call_a_band(band_rows):
         assert after[1:] == before[1:], label  # no launch on the CPU, no K5
 
 
-def test_band_entry_checks():
-    img = torch.zeros((12, 14), dtype=torch.uint16)
-    flow = torch.zeros((12, 14, 2))
+def test_band_entry_slab_flow_checks():
+    """A band's own flow in slab coordinates: a pair of (rows + 2 overlap,
+    W + 2 overlap) float32 planes; on the CPU the plain version runs and
+    nothing launches."""
+    img = torch.zeros((1, 12, 14), dtype=torch.uint16)
     out = torch.empty_like(img)
-    before = (ks.sample_band_plain.calls, ks.sample_band.launches)
-    assert ks.sample_band(img, flow, out, 8, 8, 3) is out  # last band: 4 rows
     slab = torch.zeros((14, 20))
-    assert ks.sample_band(img, (slab, slab), out, 0, 8, 3) is out
-    assert (ks.sample_band_plain.calls, ks.sample_band.launches) == (before[0] + 2, before[1])
+    before = (ks.sample_band_multi_plain.calls, ks.sample_band_multi.launches)
+    assert ks.sample_band_multi(img, (slab, slab), out, 8, 8, 3) is out  # last band: 4 rows
+    assert (ks.sample_band_multi_plain.calls, ks.sample_band_multi.launches) == (before[0] + 1, before[1])
     bad_calls = [
-        (TypeError, lambda: ks.sample_band(img.double(), flow, out.double(), 0, 8, 3)),  # a dtype it does not read
-        (TypeError, lambda: ks.sample_band(img, flow, out.to(torch.uint8), 0, 8, 3)),  # u16 into u8
-        (TypeError, lambda: ks.sample_band(img, flow.double(), out, 0, 8, 3)),
-        (TypeError, lambda: ks.sample_band(img, (slab.double(), slab), out, 0, 8, 3)),
-        (ValueError, lambda: ks.sample_band(img[None], flow, out[None], 0, 8, 3)),  # one plane, not a stack
-        (ValueError, lambda: ks.sample_band(img, flow.permute(2, 0, 1).contiguous(), out, 0, 8, 3)),
-        (ValueError, lambda: ks.sample_band(img, flow[:, :13].contiguous(), out, 0, 8, 3)),
-        (ValueError, lambda: ks.sample_band(img, (slab[:, :19].contiguous(), slab), out, 0, 8, 3)),  # slab shape
-        (ValueError, lambda: ks.sample_band(img, (slab,), out, 0, 8, 3)),
-        (ValueError, lambda: ks.sample_band(img.t(), flow, out, 0, 8, 3)),  # not contiguous
-        (ValueError, lambda: ks.sample_band(img, flow.transpose(0, 1).contiguous().transpose(0, 1), out, 0, 8, 3)),
-        (ValueError, lambda: ks.sample_band(img, flow, out[:10], 0, 8, 3)),  # output of another shape
+        (TypeError, lambda: ks.sample_band_multi(img, (slab.double(), slab), out, 0, 8, 3)),
+        (ValueError, lambda: ks.sample_band_multi(img, (slab[:, :19].contiguous(), slab), out, 0, 8, 3)),
+        (ValueError, lambda: ks.sample_band_multi(img, (slab, slab), out, 0, 9, 3)),  # the slab of 9 rows
+        (ValueError, lambda: ks.sample_band_multi(img, (slab,), out, 0, 8, 3)),
+        (ValueError, lambda: ks.sample_band_multi(img, (slab, slab.t().contiguous().t()), out, 0, 8, 3)),
     ]
-    bad_calls += [(ValueError, lambda r=r: ks.sample_band(img, flow, out, *r))
-                  for r in ((12, 8, 3), (-1, 8, 3), (0, 0, 3), (0, 8, -1))]  # band window out of range
     for exc, fn in bad_calls:
         with pytest.raises(exc):
             fn()
-    assert ks.sample_band_plain.calls == before[0] + 2
+    assert ks.sample_band_multi_plain.calls == before[0] + 1
 
 
 def test_float32_entry_dispatch_and_checks():

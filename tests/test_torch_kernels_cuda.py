@@ -11,14 +11,13 @@ torch and numpy, so it also runs where JAX is not installed:
 
 K1, K2 and K4-K6 round at the same places, in the same order, as their
 plain versions (no FMA contraction).  K1 is held to its plain version bit
-for bit, its float32 entry and its band entry (one plane in its stored
-dtype, rounded into the output's band rows) alike; K2/K4 to
-1e-5 x max|plain| + 1e-6, an upper bound on what is expected to be bitwise
-equal.  K5 is held to its plain version and to one K1
+for bit; K2/K4 to 1e-5 x max|plain| + 1e-6, an upper bound on what is
+expected to be bitwise equal.  K5 is held to its plain version and to one K1
 launch per plane with no tolerance: it rounds as K1 does, in its staged
 branch (the tile's taps in shared memory) and its direct one; its band
-entry (the z-stack apply, stored dtypes in and out) is held bit for bit to
-its plain version and to ``_apply_flow_plane`` a plane.  K6 is held bit
+entry (the band warps of one plane and of the z-stack, stored dtypes in
+and out, the flow as the whole field or a band's slab-coordinate pair) is
+held bit for bit to its plain version, at one plane and at N.  K6 is held bit
 for bit to its plain version and to K2's expansions (the same moments5
 device function), and K1's row window bit for bit to the plain version's.
 
@@ -256,47 +255,48 @@ def test_apply_flow_planes_multi_equals_per_plane_on_card(gen, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["uint8", "int8", "uint16", "int16", "int32", "float32"])
 @pytest.mark.parametrize("w", [4096, 4100])
-def test_k1_band_entry_on_card(gen, dev, name, w):
-    """The one-plane band warp (``_apply_flow_plane``), one K1 launch a band
-    of 64 rows (the last band 2 rows), against the band entry's plain
-    version on the card, at an aligned width and at 4100."""
+def test_one_plane_band_warp_on_card(gen, dev, name, w):
+    """The one-plane band warp (``_apply_flow_plane``), one launch of K5's
+    band entry a band of 64 rows (the last band 2 rows) and no K1, against
+    the band entry's plain version on the card, at an aligned width and at
+    4100 (rows not on 16 bytes for 8- and 16-bit planes)."""
     h, dt = 130, getattr(torch, name)
-    img = torch.from_numpy(_stack(gen, name, 1, h, w)[0]).to(dev)
+    img = torch.from_numpy(_stack(gen, name, 1, h, w)).to(dev)
     flow = torch.from_numpy(((gen.random((h, w, 2)) - 0.5) * 12).astype(np.float32)).to(dev)
     grid = TileGrid.for_image((h, w), 120, 20)
-    launches, k1 = kernel_sample.sample_band.launches, kernel_sample.sample_displaced.launches
-    got = _apply_flow_plane(img, flow, grid, dt, band_rows=64)
+    launches, k1 = kernel_sample.sample_band_multi.launches, kernel_sample.sample_displaced.launches
+    got = _apply_flow_plane(img[0], flow, grid, dt, band_rows=64)
     torch.cuda.synchronize()
-    assert kernel_sample.sample_band.launches == launches + 3 and kernel_sample.sample_displaced.launches == k1
+    assert kernel_sample.sample_band_multi.launches == launches + 3 and kernel_sample.sample_displaced.launches == k1
     want = torch.empty_like(img)
     for row0 in range(0, h, 64):
-        kernel_sample.sample_band_plain(img, flow, want, row0, 64, 20)
-    assert got.dtype == dt and torch.equal(got, want)
+        kernel_sample.sample_band_multi_plain(img, flow, want, row0, 64, 20)
+    assert got.dtype == dt and torch.equal(got, want[0])
 
 
 @pytest.mark.cuda
-def test_k1_band_entry_slab_flow_on_card(gen, dev):
+def test_band_entry_slab_flow_on_card(gen, dev):
     """The banded Farneback's post-warp: the band's own flow in slab
     coordinates, its halo not read."""
-    h, w, rows, o = 100, 333, 40, 12
-    img = torch.from_numpy(_stack(gen, "uint16", 1, h, w)[0]).to(dev)
+    h, w, rows, o = 100, 336, 40, 12
+    img = torch.from_numpy(_stack(gen, "uint16", 1, h, w)).to(dev)
     got, want = torch.zeros_like(img), torch.zeros_like(img)
     for row0 in range(0, h, rows):
         slab = torch.from_numpy(((gen.random((2, rows + 2 * o, w + 2 * o)) - 0.5) * 30).astype(np.float32)).to(dev)
-        kernel_sample.sample_band(img, (slab[0], slab[1]), got, row0, rows, o)
-        kernel_sample.sample_band_plain(img, (slab[0], slab[1]), want, row0, rows, o)
+        kernel_sample.sample_band_multi(img, (slab[0], slab[1]), got, row0, rows, o)
+        kernel_sample.sample_band_multi_plain(img, (slab[0], slab[1]), want, row0, rows, o)
     assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
-def test_k1_band_entry_int32_max_equals_cpu(dev):
+def test_band_entry_int32_max_equals_cpu(dev):
     """An int32 plane at its maximum: the kernel's store saturates as the
     CPU's rounding does."""
-    img = torch.full((40, 70), 2**31 - 1, dtype=torch.int32)
-    img[:, ::2] = 2**31 - 100
-    flow = torch.full((40, 70, 2), 0.5)
-    want = kernel_sample.sample_band_plain(img, flow, torch.empty_like(img), 0, 40, 5)
-    got = kernel_sample.sample_band(img.to(dev), flow.to(dev), torch.empty_like(img, device=dev), 0, 40, 5)
+    img = torch.full((1, 40, 72), 2**31 - 1, dtype=torch.int32)
+    img[..., ::2] = 2**31 - 100
+    flow = torch.full((40, 72, 2), 0.5)
+    want = kernel_sample.sample_band_multi_plain(img, flow, torch.empty_like(img), 0, 40, 5)
+    got = kernel_sample.sample_band_multi(img.to(dev), flow.to(dev), torch.empty_like(img, device=dev), 0, 40, 5)
     assert int(want.max()) == 2**31 - 1 and torch.equal(got.cpu(), want)
 
 
