@@ -16,7 +16,10 @@ Run it from the repository root; it needs one card and takes no arguments.  Phas
    main path's band shapes (4296 x 4296, 1256 x 20680) and edge cases, with
    CUDA-event times of kernel and plain version; K1 bit for bit, under the
    K3 flow and a random +-20 px flow, timed against ``F.grid_sample``
-   under both; K3 also at windows 11 and
+   under both, and at the shape the main path gives it, a chunk of the
+   tiled flow composition (32 windows of 1200^2), timed there against
+   ``F.grid_sample`` and its bound (the numbers of K1's entry in the
+   ``kernels`` line); K3 also at windows 11 and
    257, at N > 1 and at H or W below the half-window, its row pass alone,
    and, with its plain version, against the plain version run in float64
    (the kernel must be no further from it than the plain version is); K5
@@ -28,9 +31,10 @@ Run it from the repository root; it needs one card and takes no arguments.  Phas
    K5's band entry at one plane, the entry of the one-plane band warps (the
    Warper, the per-plane apply, the banded Farneback's post-warp), bit for
    bit against its plain version for u8, u16, i16, i32 and f32 4096^2
-   planes and a 4096 x 4100 u16 plane, for a slab-coordinate flow and for
-   an int32 plane at its maximum, timed against its plain version and its
-   bytes bound;
+   planes, a 4096 x 4100 u16 plane and u8 and u16 20480^2 planes in the
+   main path's bands, for a slab-coordinate flow and for an int32 plane at
+   its maximum, timed on the u16 4096^2 and 20480^2 planes against its
+   plain version and its bytes bound;
    K6 (one image's expansion) bit for bit against its plain version and
    K2's expansions at those slabs and at H or W of 1-3, timed against
    ``F.conv2d`` with the five folded filters, K2, and 2 x K6 plus the
@@ -276,6 +280,22 @@ def kernel_bounds(h, w, planes=8, taps=99) -> dict:
     return out
 
 
+def band_entry_bound(planes, px, itemsize) -> tuple:
+    """(bound ms, "bytes" or "operations") of K5's band entry over ``planes``
+    stored planes of ``px`` pixels: each stored plane read once and written
+    once, the (H, W, 2) flow read once; K5's operations a plane and output
+    (``kernel_bounds``), the taps' 4 conversions and the rounding's 3."""
+    nbytes, ops = planes * px * itemsize * 2 + 8 * px, (20 * planes + 4) * px
+    tb, tf = 1e3 * nbytes / H100_BYTES_PER_S, 1e3 * ops / H100_F32_FLOPS
+    return max(tb, tf), "bytes" if tb >= tf else "operations"
+
+
+def device_generator(rng, dev) -> torch.Generator:
+    """A torch generator on ``dev`` seeded from ``rng``: large random inputs
+    are made on the card, not on the host."""
+    return torch.Generator(device=dev).manual_seed(int(rng.integers(2**62)))
+
+
 def sample_grid(fx, fy):
     """The (N, H, W, 2) ``grid_sample`` grid (align_corners=True) of p +
     (fx, fy): the library call is timed only, its [-1, 1] coordinates lose
@@ -304,6 +324,9 @@ def poly_filters(coeffs, dev) -> torch.Tensor:
 
 BAND_SHAPES = ((4296, 4296, "4096^2 band slab"), (1256, 20680, "20480^2 band slab"))
 EDGE_SHAPES = ((9, 45, "H<16"), (37, 1001, "ragged width"))
+# K1 where the main path launches it: a chunk of the tiled flow composition (``compose_flows_batched``),
+# 32 halo windows of tile 1000 + 2 x overlap 100
+COMPOSE_CHUNK = (32, 1200)
 # K3 beside the main path's window of 99: (N, H, W, winsize), cropped from one real M
 K3_WINDOW_SHAPES = ((2, 12, 45, 11), (1, 515, 290, 11), (1, 70, 300, 257), (1, 700, 520, 257),
                     (2, 300, 1001, 99), (1, 40, 30, 99), (1, 3, 2, 99), (1, 1, 3, 11), (3, 2, 1, 11))
@@ -446,6 +469,39 @@ def check_kernels(dev, rng) -> dict:
             log(f"[kernels] {k} {label} {h}x{w}: max_abs_err {line[k]:.3e} ({TOL[k]}){t}")
         return times
 
+    def k1_compose():
+        """K1 at the main path's shape: one chunk of the tiled flow
+        composition, which samples flow2's channels (N windows of a smooth
+        flow of a few px) at p - flow1(p) (another such flow), one launch a
+        channel; and the same windows under a random +-20 px flow.  Bit for
+        bit, and timed under the smooth flow against its plain version,
+        ``grid_sample`` and its bound (plain, kernel, grid_sample, kernel,
+        plain)."""
+        n, s = COMPOSE_CHUNK
+        ph = torch.arange(n, device=dev, dtype=torch.float32).view(n, 1, 1) * 0.37
+        ys = torch.arange(s, device=dev, dtype=torch.float32).view(1, s, 1)
+        xs = torch.arange(s, device=dev, dtype=torch.float32).view(1, 1, s)
+        img = (2.5 * torch.sin(xs / 90 + ph) * torch.cos(ys / 130 - ph)).contiguous()
+        fx = (-3.0 * torch.sin(ys / 110 + ph)).expand(n, s, s).contiguous()
+        fy = (-2.1 * torch.cos(xs / 110 - ph)).expand(n, s, s).contiguous()
+        big = torch.rand((2, n, s, s), generator=device_generator(rng, dev), device=dev).sub_(0.5).mul_(40)
+        for f in ((fx, fy), (big[0], big[1])):
+            abs_ok("K1", kernel_sample.sample_displaced(img, *f), kernel_sample.sample_displaced_plain(img, *f), 0.0)
+        del big
+        grid = sample_grid(fx, fy)
+        p1 = cuda_ms(lambda: kernel_sample.sample_displaced_plain(img, fx, fy), 3)
+        k_1 = cuda_ms(lambda: kernel_sample.sample_displaced(img, fx, fy), 20)
+        lib = cuda_ms(lambda: grid_sample_call(img[:, None], grid), 20)
+        k_2 = cuda_ms(lambda: kernel_sample.sample_displaced(img, fx, fy), 20)
+        p2 = cuda_ms(lambda: kernel_sample.sample_displaced_plain(img, fx, fy), 3)
+        bound, by = kernel_bounds(n * s, s)["K1"]
+        res = {"shape": f"{n} x {s}^2", "ms": min(k_1, k_2), "plain_ms": min(p1, p2), "library_ms": lib,
+               "bound_ms": bound, "bound_by": by}
+        log(f"[kernels] K1 at the flow composition's chunk, {n} x {s}^2: kernel {res['ms']:.4f} ms "
+            f"({100 * bound / res['ms']:.0f}% of its {bound:.4f} ms bound, {by}), grid_sample {lib:.4f} ms, plain "
+            f"{res['plain_ms']:.3f} ms; bit-equal to its plain version there and under a random +-20 px flow")
+        return res
+
     t4k, t20k = (case(h, w, label, timed=True) for h, w, label in BAND_SHAPES)
     for h, w, label in EDGE_SHAPES:
         case(h, w, label, timed=False)
@@ -458,6 +514,10 @@ def check_kernels(dev, rng) -> dict:
         results[k]["ms_20k_band"], results[k]["plain_ms_20k_band"], results[k]["library_ms_20k_band"] = t20k[k]
         results[k]["bound_ms"], results[k]["bound_by"] = bounds[k]
         results[k]["bound_ms_20k_band"] = kernel_bounds(*BAND_SHAPES[1][:2])[k][0]
+    # K1's own keys: the shape the main path gives it; its 4296^2 band slab's keep the suffix _4k_band
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        results["K1"][key + "_4k_band"] = results["K1"][key]
+    results["K1"].update(k1_compose())
     # the wrappers refuse what the kernels do not take
     for bad in (lambda: kernel_sample.sample_displaced(torch.zeros((1, 4, 4), device=dev, dtype=torch.float64),
                                                        torch.zeros((1, 4, 4), device=dev),
@@ -476,35 +536,40 @@ def check_kernels(dev, rng) -> dict:
     return results
 
 
+# (dtype, H, W): 4096^2 planes of five dtypes, a width whose u16 rows are not on 16 bytes, and the 20480^2
+# planes of the Warper's and the per-plane apply's 20k paths
 ONE_PLANE_BANDS = ((torch.uint8, 4096, 4096), (torch.uint16, 4096, 4096), (torch.int16, 4096, 4096),
-                   (torch.int32, 4096, 4096), (torch.float32, 4096, 4096), (torch.uint16, 4096, 4100))
+                   (torch.int32, 4096, 4096), (torch.float32, 4096, 4096), (torch.uint16, 4096, 4100),
+                   (torch.uint8, 20480, 20480), (torch.uint16, 20480, 20480))
 
 
-def typed_plane(rng, dt, h, w, dev) -> torch.Tensor:
+def typed_plane(gen, dt, h, w, dev) -> torch.Tensor:
     """A white-noise plane stored as ``dt``, over most of its range (int32:
-    up to about 2^31, where the rounding saturates)."""
-    base = torch.from_numpy(rng.integers(0, 65535, (h, w)).astype(np.int64)).to(dev)
+    up to about 2^31, where the rounding saturates), made on ``dev`` by
+    the generator ``gen``."""
+    base = torch.randint(0, 65535, (h, w), generator=gen, device=dev, dtype=torch.int64)
     return {torch.uint8: base % 256, torch.int8: base % 256 - 128, torch.uint16: base, torch.int16: base - 32768,
             torch.int32: (base - 32768) * 65537, torch.float32: base.to(torch.float32) / 65535}[dt].to(dt)
 
 
-def check_one_plane_band(dev, rng, tile=1000, overlap=100) -> dict:
+def check_one_plane_band(dev, rng, tile=1000, overlap=100, timed=(4096, 20480)) -> dict:
     """The band entry of the one-plane band warps (``sample_band_multi`` at
     one plane: the Warper, the per-plane apply, the banded Farneback's
-    post-warp) bit for bit against its plain version on the card: u8, u16,
-    i16, i32 and f32 4096^2 planes and a 4100-wide u16 plane, each as the
-    main path cuts them (one band) and in bands of 1000 rows (a ragged last
-    band), under the z-stack apply's smooth flow and a random +-20 px flow;
-    a slab-coordinate flow (the banded Farneback's post-warp); an int32
-    plane at its maximum against the CPU's rounding.  Timed on the u16
-    4096^2 plane under the smooth flow, plain, entry, entry, plain, against
-    the bytes bound (the stored plane read and written once, the flow read
-    once)."""
+    post-warp) bit for bit against its plain version on the card, on the
+    planes of ``ONE_PLANE_BANDS``, each as the main path cuts it (tile 1000,
+    overlap 100) and, up to 4100 wide, also in bands of 1000 rows (a ragged
+    last band), under the z-stack apply's smooth flow and a random +-20 px
+    flow; a slab-coordinate flow (the banded Farneback's post-warp); an
+    int32 plane at its maximum against the CPU's rounding.  Timed on the
+    u16 4096^2 and 20480^2 planes under the smooth flow, plain, entry,
+    entry, plain, against the bytes bound (the stored plane read and
+    written once, the flow read once)."""
     from microaligner_tpu_torch.ops import kernel_sample as ks
     from microaligner_tpu_torch.optflow.flow_calc import band_rows_for
     from microaligner_tpu_torch.tiles import TileGrid
 
     res = {"max_abs_err": 0.0}
+    gen = device_generator(rng, dev)
 
     def bit_ok(label, got, want):
         err = float((got.to(torch.float64) - want.to(torch.float64)).abs().max())
@@ -516,22 +581,26 @@ def check_one_plane_band(dev, rng, tile=1000, overlap=100) -> dict:
             fn(img[None], flow, out[None], row0, rows, overlap)
         return out
 
+    def main_rows(h, w):
+        return band_rows_for(TileGrid.for_image((h, w), tile, overlap))
+
     for dt, h, w in ONE_PLANE_BANDS:
-        img = typed_plane(rng, dt, h, w, dev)
-        rand = torch.from_numpy(((rng.random((h, w, 2)) - 0.5) * 40).astype(np.float32)).to(dev)
-        for flow_kind, flow in (("smooth", torch.stack(smooth_flow(h, w, dev), dim=-1).contiguous()),
-                                ("random", rand)):
-            for rows in (band_rows_for(TileGrid.for_image((h, w), tile, overlap)), 1000):
+        img = typed_plane(gen, dt, h, w, dev)
+        for flow_kind in ("smooth", "random"):
+            flow = (torch.stack(smooth_flow(h, w, dev), dim=-1).contiguous() if flow_kind == "smooth" else
+                    torch.rand((h, w, 2), generator=gen, device=dev).sub_(0.5).mul_(40))
+            for rows in (main_rows(h, w),) + ((1000,) if w <= 4100 else ()):
                 got = bands(ks.sample_band_multi, img, flow, torch.empty_like(img), rows)
                 bit_ok(f"{dt} {h}x{w} {flow_kind} rows {rows}", got, bands(ks.sample_band_multi_plain, img, flow,
                                                                            torch.empty_like(img), rows))
-        del img, rand, flow, got
+                del got
+            del flow
+        del img
     # the banded Farneback's post-warp: the band's own flow in slab coordinates, its halo not read
-    img = typed_plane(rng, torch.uint16, 1000, 3000, dev)
+    img = typed_plane(gen, torch.uint16, 1000, 3000, dev)
     rows = 256
     for row0 in range(0, 1000, rows):
-        slab = torch.from_numpy(((rng.random((2, rows + 2 * overlap, 3000 + 2 * overlap)) - 0.5) * 40)
-                                .astype(np.float32)).to(dev)
+        slab = (torch.rand((2, rows + 2 * overlap, 3000 + 2 * overlap), generator=gen, device=dev) - 0.5) * 40
         pair = (slab[0], slab[1])
         got = ks.sample_band_multi(img[None], pair, torch.zeros_like(img)[None], row0, rows, overlap)
         bit_ok(f"slab flow, band at {row0}", got, ks.sample_band_multi_plain(
@@ -544,26 +613,26 @@ def check_one_plane_band(dev, rng, tile=1000, overlap=100) -> dict:
     got = ks.sample_band_multi(top.to(dev), flow.to(dev), torch.empty_like(top, device=dev), 0, 64, overlap).cpu()
     require(torch.equal(got, want) and int(want.max()) == 2**31 - 1,
             f"int32 at its maximum: card {got.max()}, CPU {want.max()}")
-    # timing: u16 4096^2 under the smooth flow, one band as on the main path
-    h = w = 4096
-    img = typed_plane(rng, torch.uint16, h, w, dev)
-    flow = torch.stack(smooth_flow(h, w, dev), dim=-1).contiguous()
-    rows = band_rows_for(TileGrid.for_image((h, w), tile, overlap))
-    out = torch.empty_like(img)
-    p1, b1 = cuda_ms(lambda: bands(ks.sample_band_multi_plain, img, flow, out, rows), 3), cuda_ms(
-        lambda: bands(ks.sample_band_multi, img, flow, out, rows), 20)
-    b2, p2 = cuda_ms(lambda: bands(ks.sample_band_multi, img, flow, out, rows), 20), cuda_ms(
-        lambda: bands(ks.sample_band_multi_plain, img, flow, out, rows), 3)
-    px = h * w
-    nbytes, ops = px * 2 * 2 + 8 * px, 24 * px  # zstack_apply's count at one plane
-    tb, tf = 1e3 * nbytes / H100_BYTES_PER_S, 1e3 * ops / H100_F32_FLOPS
-    res.update(ms=min(b1, b2), plain_ms=min(p1, p2), bound_ms=max(tb, tf), bound_by="bytes" if tb >= tf else "operations",
-               bands=-(-h // rows))
-    log(f"[kernels] K5 band entry at one plane, u16 {h}^2, smooth flow, {res['bands']} band(s): {res['ms']:.4f} ms "
-        f"({100 * res['bound_ms'] / res['ms']:.0f}% of its {res['bound_ms']:.4f} ms bound, {res['bound_by']}), plain "
-        f"{res['plain_ms']:.3f} ms; bit-equal to its plain version for {len(ONE_PLANE_BANDS)} planes, 2 band cuts, "
-        f"2 flows, a slab flow and int32 at its maximum")
-    del img, flow, out
+    # timing: u16 planes under the smooth flow, cut as on the main path
+    for n, key in zip(timed, ("", "_20k")):
+        img = typed_plane(gen, torch.uint16, n, n, dev)
+        flow = torch.stack(smooth_flow(n, n, dev), dim=-1).contiguous()
+        rows = main_rows(n, n)
+        out = torch.empty_like(img)
+        p1, b1 = cuda_ms(lambda: bands(ks.sample_band_multi_plain, img, flow, out, rows), 3), cuda_ms(
+            lambda: bands(ks.sample_band_multi, img, flow, out, rows), 20)
+        b2, p2 = cuda_ms(lambda: bands(ks.sample_band_multi, img, flow, out, rows), 20), cuda_ms(
+            lambda: bands(ks.sample_band_multi_plain, img, flow, out, rows), 3)
+        bound, by = band_entry_bound(1, n * n, 2)
+        res.update({"ms" + key: min(b1, b2), "plain_ms" + key: min(p1, p2), "bound_ms" + key: bound,
+                    "bound_by" + key: by, "bands" + key: -(-n // rows)})
+        log(f"[kernels] K5 band entry at one plane, u16 {n}^2, smooth flow, {res['bands' + key]} band(s): "
+            f"{res['ms' + key]:.4f} ms ({100 * bound / res['ms' + key]:.0f}% of its {bound:.4f} ms bound, {by}), "
+            f"plain {res['plain_ms' + key]:.3f} ms")
+        del img, flow, out
+    log(f"[kernels] K5 band entry at one plane: bit-equal to its plain version for {len(ONE_PLANE_BANDS)} planes "
+        f"(up to 20480^2), the main path's band cut and bands of 1000 rows, 2 flows, a slab flow and int32 at its "
+        f"maximum")
     return res
 
 
@@ -1120,13 +1189,9 @@ def zstack_apply(dev, rng, counters: Counters, n=4096, n_planes=8, tile=1000, ov
     grid_s = sample_grid(-flow[None, ..., 0], -flow[None, ..., 1])
     lib_f32 = cuda_ms(lambda: grid_sample_call(planes[None], grid_s), 20)
     del grid_s, out
-    px = n * n
-    # K5's operations a plane and output (kernel_bounds), the taps' 4 conversions and the rounding's 3
-    nbytes, ops = n_planes * px * 2 * 2 + 8 * px, (20 * n_planes + 4) * px
-    tb, tf = 1e3 * nbytes / H100_BYTES_PER_S, 1e3 * ops / H100_F32_FLOPS
-    res["band_entry"] = {"max_abs_err": err, "ms": min(k_1, k_2), "plain_ms": min(p1, p2),
-                         "bound_ms": max(tb, tf), "bound_by": "bytes" if tb >= tf else "operations",
-                         "library_ms": None, "f32_ms": f32_ms, "f32_library_ms": lib_f32}
+    bound, by = band_entry_bound(n_planes, n * n, 2)
+    res["band_entry"] = {"max_abs_err": err, "ms": min(k_1, k_2), "plain_ms": min(p1, p2), "bound_ms": bound,
+                         "bound_by": by, "library_ms": None, "f32_ms": f32_ms, "f32_library_ms": lib_f32}
     res["per_plane_ms"] = min(t1, t2)
     b = res["band_entry"]
     log(f"[zstack] {n_planes} u16 {n}^2 planes, one flow, tile {tile} overlap {overlap}, {bands} band(s): "

@@ -31,73 +31,6 @@
 
 namespace {
 
-__device__ __forceinline__ float clamp_keep_nan(float v, float lo, float hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
-
-// round_to_dtype: round half to even, clamp to the type's range (as float32
-// bounds, like torch.clamp on a float32 tensor), convert (saturating, NaN to 0)
-template <typename T>
-struct Store;
-template <>
-struct Store<float> {
-  __device__ static float cvt(float v) { return v; }
-};
-template <>
-struct Store<uint8_t> {
-  __device__ static uint8_t cvt(float v) {
-    return static_cast<uint8_t>(clamp_keep_nan(rintf(v), 0.0f, 255.0f));
-  }
-};
-template <>
-struct Store<int8_t> {
-  __device__ static int8_t cvt(float v) {
-    return static_cast<int8_t>(clamp_keep_nan(rintf(v), -128.0f, 127.0f));
-  }
-};
-template <>
-struct Store<uint16_t> {
-  __device__ static uint16_t cvt(float v) {
-    return static_cast<uint16_t>(clamp_keep_nan(rintf(v), 0.0f, 65535.0f));
-  }
-};
-template <>
-struct Store<int16_t> {
-  __device__ static int16_t cvt(float v) {
-    return static_cast<int16_t>(clamp_keep_nan(rintf(v), -32768.0f, 32767.0f));
-  }
-};
-template <>
-struct Store<int32_t> {
-  // 2147483647 is 2147483648.0f as a float32 bound; the conversion saturates,
-  // as round_to_dtype's float64 clamp does
-  __device__ static int32_t cvt(float v) {
-    return static_cast<int32_t>(clamp_keep_nan(rintf(v), -2147483648.0f, 2147483648.0f));
-  }
-};
-
-// A stored value as float32, the value `.to(torch.float32)` gives: 8- and
-// 16-bit integers as the float32 2^23 + v less 2^23 (exact, on the
-// full-rate integer and float pipes rather than the conversion unit), i32
-// rounded to nearest.
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(int32_t v) { return static_cast<float>(v); }
-__device__ __forceinline__ float to_f32(uint16_t v) {
-  return ma::sub(__uint_as_float(0x4B000000u | v), 8388608.0f);
-}
-__device__ __forceinline__ float to_f32(int16_t v) {
-  return ma::sub(__uint_as_float(0x4B000000u | static_cast<unsigned>(v + 32768)), 8421376.0f);
-}
-__device__ __forceinline__ float to_f32(uint8_t v) {
-  return ma::sub(__uint_as_float(0x4B000000u | v), 8388608.0f);
-}
-__device__ __forceinline__ float to_f32(int8_t v) {
-  return ma::sub(__uint_as_float(0x4B000000u | static_cast<unsigned>(v + 128)), 8388736.0f);
-}
-
-// dtype codes of ops/kernel_sample.py::DTYPE_CODES
-enum Kind { kU8 = 0, kI8 = 1, kU16 = 2, kI16 = 3, kI32 = 4, kF32 = 5 };
-
 namespace k1 {
 
 constexpr int kLanes = 32, kWarps = 8, kThreads = kLanes * kWarps;
@@ -248,6 +181,70 @@ struct Args {
   int lo, hi;             // valid source rows [lo, hi)
   unsigned int* staged;  // null, or a count of the tiles that took the staged branch
 };
+
+__device__ __forceinline__ float clamp_keep_nan(float v, float lo, float hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// round_to_dtype: round half to even, clamp to the type's range (as float32
+// bounds, like torch.clamp on a float32 tensor), convert (saturating, NaN to 0)
+template <typename T>
+struct Store;
+template <>
+struct Store<float> {
+  __device__ static float cvt(float v) { return v; }
+};
+template <>
+struct Store<uint8_t> {
+  __device__ static uint8_t cvt(float v) {
+    return static_cast<uint8_t>(clamp_keep_nan(rintf(v), 0.0f, 255.0f));
+  }
+};
+template <>
+struct Store<int8_t> {
+  __device__ static int8_t cvt(float v) {
+    return static_cast<int8_t>(clamp_keep_nan(rintf(v), -128.0f, 127.0f));
+  }
+};
+template <>
+struct Store<uint16_t> {
+  __device__ static uint16_t cvt(float v) {
+    return static_cast<uint16_t>(clamp_keep_nan(rintf(v), 0.0f, 65535.0f));
+  }
+};
+template <>
+struct Store<int16_t> {
+  __device__ static int16_t cvt(float v) {
+    return static_cast<int16_t>(clamp_keep_nan(rintf(v), -32768.0f, 32767.0f));
+  }
+};
+template <>
+struct Store<int32_t> {
+  // 2147483647 is 2147483648.0f as a float32 bound; the conversion saturates,
+  // as round_to_dtype's float64 clamp does
+  __device__ static int32_t cvt(float v) {
+    return static_cast<int32_t>(clamp_keep_nan(rintf(v), -2147483648.0f, 2147483648.0f));
+  }
+};
+
+// A stored value as float32, the value `.to(torch.float32)` gives: 8- and
+// 16-bit integers as the float32 2^23 + v less 2^23 (exact, on the
+// full-rate integer and float pipes rather than the conversion unit), i32
+// rounded to nearest.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(int32_t v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_f32(uint16_t v) {
+  return ma::sub(__uint_as_float(0x4B000000u | v), 8388608.0f);
+}
+__device__ __forceinline__ float to_f32(int16_t v) {
+  return ma::sub(__uint_as_float(0x4B000000u | static_cast<unsigned>(v + 32768)), 8421376.0f);
+}
+__device__ __forceinline__ float to_f32(uint8_t v) {
+  return ma::sub(__uint_as_float(0x4B000000u | v), 8388608.0f);
+}
+__device__ __forceinline__ float to_f32(int8_t v) {
+  return ma::sub(__uint_as_float(0x4B000000u | static_cast<unsigned>(v + 128)), 8388736.0f);
+}
 
 // 16 bytes from global to shared memory, or 16 zero bytes when !full (the
 // source is then not read).
@@ -480,6 +477,9 @@ int launch(const Args& a, int vec, cudaStream_t stream) {
   sample_multi_kernel<Tin, Tout><<<grid, block, 0, stream>>>(a, vec);
   return static_cast<int>(cudaGetLastError());
 }
+
+// dtype codes of ops/kernel_sample.py::DTYPE_CODES
+enum Kind { kU8 = 0, kI8 = 1, kU16 = 2, kI16 = 3, kI32 = 4, kF32 = 5 };
 
 }  // namespace k5
 

@@ -97,8 +97,9 @@ def _apply_flow_plane(img: torch.Tensor, flow: torch.Tensor, grid: TileGrid,
                       dtype: torch.dtype, band_rows: Optional[int] = None) -> torch.Tensor:
     """Banded warp of one (H, W) plane by the (H, W, 2) flow on the flow's
     device, rounded half to even and clipped back to ``dtype`` (``cv.remap``
-    on integer images rounds) inside each band: one K1 launch a band of the
-    stored plane when its dtype is ``dtype`` (``warp_tiled_dtype``)."""
+    on integer images rounds) inside each band: one launch of K5's band
+    entry (``sample_band_multi``) a band, where the plane's dtype is
+    ``dtype`` (``warp_tiled_dtype``)."""
     return warp_tiled_dtype(img, flow, grid, dtype, band_rows)
 
 

@@ -15,8 +15,8 @@ every plane) are held against the JAX package's ``warp_planes_tiled`` and
 
 Within the port, K5's plain version equals the per-plane K1 plain version
 bit for bit, and ``_apply_flow_planes`` gives the same planes as
-``_apply_flow_plane`` on each plane (one K1 launch a band and plane) bit for
-bit.  K5's band entry (``sample_band_multi``: stored planes in, rounded
+``_apply_flow_plane`` on each plane (one launch of the band entry a band
+and plane) bit for bit.  K5's band entry (``sample_band_multi``: stored planes in, rounded
 band rows out, one launch a band) equals, through its plain version, the
 composition the apply used before it (an f32 slab of the zero canvas,
 zero-padded flow slabs, K5 on the negated flow, crop, ``round_to_dtype``)
