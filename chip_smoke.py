@@ -73,7 +73,7 @@ Run it from the repository root; it needs one card and takes no arguments.  Phas
    unregistered MSE;
 7. FeatureReg: ``FeatureRegistrator.register`` on config 1's pair of the
    JAX package's bench (4096^2, ``t_true`` of ``bench.py::bench_feature``),
-   two textures, each on the card and on the CPU (the corners within 1e-3
+   one texture, on the card and on the CPU (the corners within 1e-3
    px of each other and within 0.5 px of the truth), then on a 20480^2
    pair with the stage timers on (each level's find, match, RANSAC and
    gate, summed over the iterations);
@@ -87,9 +87,25 @@ Run it from the repository root; it needs one card and takes no arguments.  Phas
    recovered affine within 0.5 px at the corners, the reference cycle bit
    for bit, the registered MSE below a quarter of the unregistered;
 9. the automatic FeatureReg pass: an OptFlowReg-only config over one
-   4096 x 4096 and one 4000 x 4100 image.
+   4096 x 4096 and one 4000 x 4100 image;
+10. the JAX package's alternate routes (``alternate_routes``, run after
+   phase 6's 4096^2 CLI; each variable set for its case only, the
+   environment restored after it): under ``MICROALIGNER_TPU_FLOW_DENSE=0``
+   phase 3's 1024^2 parity (card against CPU, phase 3's bars), a 20480^2
+   register, ``Warper.warp_device`` and ``_apply_flow_plane`` (K1-K4
+   launched, K5 never; the main path's bars), timed beside the banded
+   route on the same pair, and the 4096^2 OptFlowReg CLI (K5 never; the
+   CLI's MSE bar); the three OptFlow drivers (whole,
+   ``WHOLE_REGISTER=0``, ``CARRY_LEVEL=0``) on one 4096^2 pair, the same
+   accept/reject and flows within 1e-4 px; on config 1's 4096^2 pair the
+   FeatureReg drivers (``FUSED_REGISTER=0``, ``FUSED_LEVEL=0``: linear part
+   within 1e-4 and translation within 0.05 px of the whole route's) and
+   the per-tile feature path (``FEATURE_DENSE=0``: the whole level's
+   keypoints), each within 0.5 px of the truth, then ``FEATURE_DENSE=0``
+   once at ``FEATURE_PER_TILE_N``^2, timed.  Phase 2 also holds K2-K4 at
+   the per-tile route's chunk, 8 halo windows of 1200^2, and times them.
 
-Every path of phases 4-6 runs with the kernels' launch counters set to 0
+Every path of phases 4-10 runs with the kernels' launch counters set to 0
 just before it and read just after: each kernel of the path must have
 launched and no plain version may have run.  The last lines are the card's
 name and power limit as nvidia-smi prints them, a JSON object with one entry
@@ -327,6 +343,9 @@ EDGE_SHAPES = ((9, 45, "H<16"), (37, 1001, "ragged width"))
 # K1 where the main path launches it: a chunk of the tiled flow composition (``compose_flows_batched``),
 # 32 halo windows of tile 1000 + 2 x overlap 100
 COMPOSE_CHUNK = (32, 1200)
+# K2-K4 where the per-tile route (MICROALIGNER_TPU_FLOW_DENSE=0) launches them: a chunk of
+# MICROALIGNER_TPU_FLOW_TILE_BATCH's default 8 halo windows of tile 1000 + 2 x overlap 100
+PER_TILE_CHUNK = (8, 1200)
 # K3 beside the main path's window of 99: (N, H, W, winsize), cropped from one real M
 K3_WINDOW_SHAPES = ((2, 12, 45, 11), (1, 515, 290, 11), (1, 70, 300, 257), (1, 700, 520, 257),
                     (2, 300, 1001, 99), (1, 40, 30, 99), (1, 3, 2, 99), (1, 1, 3, 11), (3, 2, 1, 11))
@@ -502,6 +521,50 @@ def check_kernels(dev, rng) -> dict:
             f"{res['plain_ms']:.3f} ms; bit-equal to its plain version there and under a random +-20 px flow")
         return res
 
+    def k234_per_tile():
+        """K2-K4 where the per-tile route (``MICROALIGNER_TPU_FLOW_DENSE=0``)
+        launches them: one chunk of 8 halo windows of 1200^2 (tile 1000,
+        overlap 100), held to their bars (K3 at window 99 also against
+        float64) and timed against their plain versions and bounds (plain,
+        kernel, kernel, plain)."""
+        n, s = PER_TILE_CHUNK
+        base = texture(rng, s + 8, n * s + 8, dev) * 255
+        mov = torch.stack([base[4 : 4 + s, i * s + 4 : i * s + 4 + s] for i in range(n)]).contiguous()
+        ref = torch.stack([base[3 : 3 + s, i * s + 5 : i * s + 5 + s] for i in range(n)]).contiguous()
+        del base
+        sp0, sp1 = fb._pad_replicate1(fb._pre_smooth(mov)), fb._pad_replicate1(fb._pre_smooth(ref))
+        del mov, ref
+        errs = {}
+        got = kernel_poly.poly_pair_m(sp0, sp1, coeffs)
+        want = kernel_poly.poly_pair_m_plain(sp0, sp1, coeffs)
+        errs["K2"] = max(rel_ok("K2", g, wv) for g, wv in zip(got, want))
+        del got
+        r0, r1, m0 = want
+        fx, fy = kernel_agg.smooth5_solve(m0, 99)
+        rx, ry = kernel_agg.smooth5_solve_plain(m0, 99)
+        errs["K3"] = max(abs_ok("K3", fx, rx, 1e-4), abs_ok("K3", fy, ry, 1e-4))
+        k3_f64_ok(f"per-tile chunk {n} x {s}^2", m0, 99, (fx, fy), (rx, ry))
+        del fx, fy
+        errs["K4"] = rel_ok("K4", kernel_matrices.update_matrices(r0, r1, rx, ry),
+                            kernel_matrices.update_matrices_plain(r0, r1, rx, ry))
+        calls = {
+            "K2": (lambda: kernel_poly.poly_pair_m(sp0, sp1, coeffs),
+                   lambda: kernel_poly.poly_pair_m_plain(sp0, sp1, coeffs)),
+            "K3": (lambda: kernel_agg.smooth5_solve(m0, 99), lambda: kernel_agg.smooth5_solve_plain(m0, 99)),
+            "K4": (lambda: kernel_matrices.update_matrices(r0, r1, rx, ry),
+                   lambda: kernel_matrices.update_matrices_plain(r0, r1, rx, ry)),
+        }
+        bounds = kernel_bounds(n * s, s)
+        out = {}
+        for k, (kern, plain) in calls.items():
+            p1, k_1, k_2, p2 = cuda_ms(plain, 3), cuda_ms(kern, 20), cuda_ms(kern, 20), cuda_ms(plain, 3)
+            out[k] = {"shape": f"{n} x {s}^2", "ms": min(k_1, k_2), "plain_ms": min(p1, p2),
+                      "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "max_abs_err": errs[k]}
+            log(f"[kernels] {k} at the per-tile chunk, {n} x {s}^2: kernel {out[k]['ms']:.4f} ms "
+                f"({100 * bounds[k][0] / out[k]['ms']:.0f}% of its {bounds[k][0]:.4f} ms bound, {bounds[k][1]}), "
+                f"plain {out[k]['plain_ms']:.3f} ms; max_abs_err {errs[k]:.3e} ({TOL[k]})")
+        return out
+
     t4k, t20k = (case(h, w, label, timed=True) for h, w, label in BAND_SHAPES)
     for h, w, label in EDGE_SHAPES:
         case(h, w, label, timed=False)
@@ -518,6 +581,8 @@ def check_kernels(dev, rng) -> dict:
     for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
         results["K1"][key + "_4k_band"] = results["K1"][key]
     results["K1"].update(k1_compose())
+    for k, entry in k234_per_tile().items():
+        results[k]["per_tile_chunk"] = entry
     # the wrappers refuse what the kernels do not take
     for bad in (lambda: kernel_sample.sample_displaced(torch.zeros((1, 4, 4), device=dev, dtype=torch.float64),
                                                        torch.zeros((1, 4, 4), device=dev),
@@ -796,7 +861,11 @@ def check_k6(dev, rng) -> dict:
 
 # -- phase 3 ---------------------------------------------------------------
 
-def parity_run(dev, rng, n=1024) -> dict:
+def parity_run(dev, rng, n=1024, label="parity", counters: "Counters | None" = None, kernels=()) -> dict:
+    """A 1024^2 pair registered on the card and through the plain versions
+    on the CPU (tile 500, overlap 100, bands of 256 rows on the banded
+    route); with ``counters``, the card run's launches are counted from 0
+    and each of ``kernels`` must have launched."""
     from microaligner_tpu_torch.ops.filters import minmax_normalize_u8
     from microaligner_tpu_torch.optflow.registrator import OptFlowRegistrator
 
@@ -805,26 +874,32 @@ def parity_run(dev, rng, n=1024) -> dict:
     ref = minmax_normalize_u8(base).numpy()
     mov = minmax_normalize_u8(remap_rows(base, dx, dy)).numpy()
     flows, scores, secs = {}, {}, {}
+    res = {}
     for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
         reg = OptFlowRegistrator(device=device)
         reg.num_pyr_lvl, reg.num_iterations = 3, 3
         reg.tile_size, reg.overlap, reg.band_rows = 500, 100, 256
         reg.use_full_res_img = True
         reg.ref_img, reg.mov_img = ref, mov
+        if counters is not None and name == "cuda":
+            counters.reset()
         t0 = time.perf_counter()
         flows[name] = reg.register_device().cpu()
         secs[name] = time.perf_counter() - t0
         scores[name] = reg.last_scores
+        if counters is not None and name == "cuda":
+            res["launches"] = counters.read(label, kernels)
     decisions = {k: [a > b for _, a, b in v] for k, v in scores.items()}
-    require(decisions["cuda"] == decisions["cpu"], f"accept/reject differ: {decisions}")
+    require(decisions["cuda"] == decisions["cpu"], f"{label}: accept/reject differ: {decisions}")
     err = (flows["cuda"] - flows["cpu"]).abs()
     mean, mx = float(err.mean()), float(err.max())
-    log(f"[parity] {n}^2 register_device: card {secs['cuda']:.2f} s, cpu plain {secs['cpu']:.2f} s; "
+    log(f"[{label}] {n}^2 register_device: card {secs['cuda']:.2f} s, cpu plain {secs['cpu']:.2f} s; "
         f"accept/reject {decisions['cuda']} on both; flow diff mean {mean:.3e} max {mx:.3e} px")
-    require(bool(torch.isfinite(flows["cuda"]).all()), "non-finite flow")
-    require(mean < 1e-4 and mx < 1e-2, f"flow diff mean {mean} max {mx}")
-    return {"flow_diff_mean": mean, "flow_diff_max": mx, "decisions": decisions["cuda"],
-            "card_s": secs["cuda"], "cpu_s": secs["cpu"]}
+    require(bool(torch.isfinite(flows["cuda"]).all()), f"{label}: non-finite flow")
+    require(mean < 1e-4 and mx < 1e-2, f"{label}: flow diff mean {mean} max {mx}")
+    res.update(flow_diff_mean=mean, flow_diff_max=mx, decisions=decisions["cuda"], card_s=secs["cuda"],
+               cpu_s=secs["cpu"])
+    return res
 
 
 def unpaired_route(dev, rng, counters: "Counters", stack_planes, n=1024) -> dict:
@@ -1374,7 +1449,7 @@ def inverse2x3(fwd) -> np.ndarray:
     return np.linalg.inv(np.vstack([np.asarray(fwd, np.float64), [0.0, 0.0, 1.0]]))[:2]
 
 
-def feature_pairs(dev, rng, counters: "Counters", sizes=(4096, 20480), cpu_pairs=2) -> dict:
+def feature_pairs(dev, rng, counters: "Counters", sizes=(4096, 20480), cpu_pairs=1) -> dict:
     """Config 1 of the JAX package's bench (``bench.py::bench_feature``):
     ``FeatureRegistrator`` (3 levels [8, 4, 2], 3 iterations, tile 1000,
     DoG) on 4096^2 u8 pairs moved by ``t_true``, ``cpu_pairs`` textures,
@@ -1665,6 +1740,284 @@ def auto_feature_pass(dev, rng, counters: "Counters", h=4096) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# -- phase 10 --------------------------------------------------------------
+
+ROUTE_VARIABLES = ("FLOW_DENSE", "FLOW_TILE_BATCH", "WHOLE_REGISTER", "CARRY_LEVEL", "FUSED_REGISTER",
+                   "FUSED_LEVEL", "FEATURE_DENSE", "FEATURE_DENSE_MAX_MPIX")
+# the per-tile feature path's timed FeatureReg run: the largest plane the repo runs
+FEATURE_PER_TILE_N = 20480
+
+
+@contextlib.contextmanager
+def routes(**variables):
+    """The JAX package's route variables (``MICROALIGNER_TPU_<name>``) as
+    given, the others unset, for the block; the environment as it was after
+    it, so that later phases take the default routes."""
+    keys = [f"MICROALIGNER_TPU_{k}" for k in ROUTE_VARIABLES]
+    saved = {k: os.environ.pop(k, None) for k in keys}
+    try:
+        os.environ.update({f"MICROALIGNER_TPU_{k}": v for k, v in variables.items()})
+        yield
+    finally:
+        for k in keys:
+            os.environ.pop(k, None)
+        os.environ.update({k: v for k, v in saved.items() if v is not None})
+
+
+def routes_per_tile_20480(dev, rng, counters: "Counters", n=20480, tile=1000, overlap=100) -> dict:
+    """The per-tile route at full width: a 20480^2 u8 pair moved by
+    ``displacement()`` registered at the main path's settings, then
+    ``Warper.warp_device`` and ``_apply_flow_plane`` on a u16 plane, under
+    ``FLOW_DENSE=0`` with the counters from 0 (K1-K4 launched, K5 never),
+    held to the main path's bars; then the register timed on both routes
+    in turns (per-tile, banded, per-tile, banded) and the per-plane apply
+    of one flow on both (per-tile, banded, per-tile, banded)."""
+    from microaligner_tpu_torch.ops.filters import minmax_normalize_u8
+    from microaligner_tpu_torch.optflow.registrator import OptFlowRegistrator
+    from microaligner_tpu_torch.optflow.warper import Warper
+    from microaligner_tpu_torch.pipeline.runner import _apply_flow_plane
+    from microaligner_tpu_torch.tiles import TileGrid
+
+    t0 = time.perf_counter()
+    base = texture(rng, n, n, dev)
+    dx, dy = displacement(n, n, 3.0, 0.3, dev, wavelength=2000.0)
+    ref = minmax_normalize_u8(base)
+    mov_f = remap_rows(base, dx, dy)
+    mov = minmax_normalize_u8(mov_f)
+    plane = torch.clamp(mov_f * 60000 + 1000, 0, 65535).round().to(torch.uint16)
+    del base, mov_f
+    torch.cuda.synchronize()
+    log(f"[routes] {n}^2 pair and u16 plane made in {time.perf_counter() - t0:.2f} s")
+    grid = TileGrid.for_image((n, n), tile, overlap)
+
+    def register():
+        reg = OptFlowRegistrator(device=dev)
+        reg.num_pyr_lvl, reg.num_iterations, reg.tile_size, reg.overlap = 3, 3, tile, overlap
+        reg.use_full_res_img, reg.use_dog = True, False
+        reg.ref_img, reg.mov_img = ref, mov
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        flow = reg.register_device()
+        torch.cuda.synchronize()
+        # the register's own peak: device memory allocated at the peak beyond what was live before it
+        extra = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        return flow, time.perf_counter() - t0, extra, reg.last_scores
+
+    with routes(FLOW_DENSE="0"):
+        counters.reset()
+        flow, reg_s, peak, scores = register()
+        warper = Warper(device=dev)
+        warper.tile_size, warper.overlap = tile, overlap
+        warper.image, warper.flow = mov, flow
+        t0 = time.perf_counter()
+        warped = warper.warp_device()
+        torch.cuda.synchronize()
+        warp_s = time.perf_counter() - t0
+        applied = _apply_flow_plane(plane, flow, grid, torch.uint16)
+        torch.cuda.synchronize()
+        launches = counters.read("routes per-tile 20480", ("K1", "K2", "K3", "K4"))
+    require(launches["K5"] == 0, f"routes per-tile 20480: K5 launched {launches['K5']} times")
+    require(flow.shape == (n, n, 2) and bool(torch.isfinite(flow).all()), "per-tile 20480: bad flow")
+    require(applied.dtype == torch.uint16 and applied.shape == (n, n), "per-tile 20480: bad apply")
+    err = interior_err(flow, dx, dy, 500)
+    before, after = interior_mse(mov, ref, 500), interior_mse(warped, ref, 500)
+    res = dict(launches=launches, register_s={"per-tile": [reg_s], "banded": []}, peak_gib={"per-tile": peak},
+               warp_s=warp_s, flow_err_px=err, mse_before=before, mse_after=after,
+               gate=[(f, a > b) for f, a, b in scores])
+    log(f"[routes] {n}^2 u8 register on the per-tile route {reg_s:.2f} s ({peak:.2f} GiB at its peak beyond the "
+        f"inputs), warp_device "
+        f"{warp_s:.3f} s; flow err {err:.4f} px; mse {before:.1f} -> {after:.1f}; gate {res['gate']}")
+    require(err < 0.25 and after < 0.25 * before, res)
+    del warped, applied
+    for route in ("1", "0", "1"):
+        name = "per-tile" if route == "0" else "banded"
+        with routes(FLOW_DENSE=route):
+            f, secs, peak, _ = register()
+        del f
+        res["register_s"][name].append(secs)
+        res["peak_gib"][name] = max(res["peak_gib"].get(name, 0.0), peak)
+    apply_ms = {"per-tile": [], "banded": []}
+    for route in ("0", "1", "0", "1"):
+        with routes(FLOW_DENSE=route):
+            apply_ms["per-tile" if route == "0" else "banded"].append(
+                cuda_ms(lambda: _apply_flow_plane(plane, flow, grid, torch.uint16), 3))
+    res["apply_ms"] = apply_ms
+    log(f"[routes] {n}^2 register, per-tile route {res['register_s']['per-tile']} s, banded "
+        f"{res['register_s']['banded']} s; device memory at the register's peak beyond its inputs {res['peak_gib']} "
+        f"GiB; _apply_flow_plane on a u16 plane, "
+        f"per-tile {apply_ms['per-tile']} ms, banded {apply_ms['banded']} ms")
+    del flow, plane, ref, mov, dx, dy
+    torch.cuda.empty_cache()
+    return res
+
+
+def routes_drivers(dev, rng, counters: "Counters", n=4096) -> dict:
+    """The three OptFlow drivers on one 4096^2 u8 pair on the default
+    route: whole, ``WHOLE_REGISTER=0`` and ``CARRY_LEVEL=0`` give the same
+    accept/reject and flows within 1e-4 px of the whole driver's (the JAX
+    package's bar for whole against per-level)."""
+    from microaligner_tpu_torch.ops.filters import minmax_normalize_u8
+    from microaligner_tpu_torch.optflow.registrator import OptFlowRegistrator
+
+    base = texture(rng, n, n, dev)
+    dx, dy = displacement(n, n, 3.0, 0.6, dev)
+    ref, mov = minmax_normalize_u8(base), minmax_normalize_u8(remap_rows(base, dx, dy))
+    del base, dx, dy
+    flows, decisions, secs, launches = {}, {}, {}, {}
+    for name, variables in (("whole", {}), ("per-level", {"WHOLE_REGISTER": "0"}), ("stepwise", {"CARRY_LEVEL": "0"})):
+        reg = OptFlowRegistrator(device=dev)
+        reg.num_pyr_lvl, reg.num_iterations, reg.tile_size, reg.overlap, reg.use_full_res_img = 3, 3, 1000, 100, True
+        reg.ref_img, reg.mov_img = ref, mov
+        with routes(**variables):
+            counters.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            flows[name] = reg.register_device()
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+            got = counters.read(f"routes driver {name}", ("K1", "K2", "K3", "K4", "K5"))
+        launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+        decisions[name] = [a > b for _, a, b in reg.last_scores]
+    errs = {k: float((flows[k] - flows["whole"]).abs().max()) for k in ("per-level", "stepwise")}
+    del flows
+    # timed again in the reverse order: each driver's time is the better of its two runs
+    for name, variables in (("stepwise", {"CARRY_LEVEL": "0"}), ("per-level", {"WHOLE_REGISTER": "0"}), ("whole", {})):
+        reg = OptFlowRegistrator(device=dev)
+        reg.num_pyr_lvl, reg.num_iterations, reg.tile_size, reg.overlap, reg.use_full_res_img = 3, 3, 1000, 100, True
+        reg.ref_img, reg.mov_img = ref, mov
+        with routes(**variables):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reg.register_device()
+            torch.cuda.synchronize()
+            secs[name] = [secs[name], time.perf_counter() - t0]
+    log(f"[routes] three OptFlow drivers on a {n}^2 pair: {secs} s (forward, then reverse order); accept/reject "
+        f"{decisions}; max flow difference from the whole driver's {errs} px")
+    require(all(d == decisions["whole"] for d in decisions.values()), f"drivers: accept/reject differ {decisions}")
+    require(all(e < 1e-4 for e in errs.values()), f"drivers: flows differ {errs}")
+    return {"launches": launches, "secs": secs, "decisions": decisions["whole"], "max_flow_diff_px": errs}
+
+
+def routes_cli_4096(dev, planes, counters: "Counters") -> dict:
+    """The OptFlowReg CLI at 4096^2 (the 4096^2 stack of phase 4 as an OME
+    CycleStack) under ``FLOW_DENSE=0``: K1-K4 launched and K5 never, and
+    the CLI's MSE bar."""
+    work = Path(tempfile.mkdtemp(prefix="ma_chip_smoke_routes_"))
+    try:
+        stack = work / "stack_4096.ome.tif"
+        write_cycle_stack(stack, planes)
+        write_named_config(work / "cfg.yaml", "config_cycle_stack_optflow_only.yaml", {"CycleStack": str(stack)},
+                           work / "out")
+        torch.cuda.reset_peak_memory_stats(dev)
+        with routes(FLOW_DENSE="0"):
+            counters.reset()
+            wall, stages = run_cli_in_process(work / "cfg.yaml", dev)
+            launches = counters.read("routes cli_4096 FLOW_DENSE=0", ("K1", "K2", "K3", "K4"))
+        require(launches["K5"] == 0, f"routes cli_4096: K5 launched {launches['K5']} times")
+        res = check_stage_output(work / "out" / "optflow_reg_result_stack.tif", planes, planes[0], 200,
+                                 "cli 4096 FLOW_DENSE=0", dev, mse_bar=0.25)
+        res.update(wall_s=wall, stages_s=stages, launches=launches,
+                   peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+        log(f"[routes] 4096^2 OptFlowReg CLI under FLOW_DENSE=0: in process {wall:.2f} s (stage timers on), peak "
+            f"{res['peak_gib']:.2f} GiB; stages {stages}; registered mse / unregistered mse <= "
+            f"{res['mse_ratio_max']:.4f}")
+        return res
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def routes_feature(dev, rng, counters: "Counters", n=4096, n_big=FEATURE_PER_TILE_N) -> dict:
+    """Config 1's 4096^2 pair (``feature_pairs``) through the FeatureReg
+    drivers: ``FUSED_REGISTER=0`` and ``FUSED_LEVEL=0`` against the whole
+    route (linear part within 1e-4, translation within 0.05 px) and
+    ``FEATURE_DENSE=0``, each within 0.5 px of the truth at the corners;
+    the per-tile path's keypoints equal the whole level's on the pair's
+    DoG'd reference; then ``FEATURE_DENSE=0`` once on an ``n_big``^2 pair,
+    timed."""
+    from microaligner_tpu_torch.features import FeatureRegistrator
+    from microaligner_tpu_torch.features.tile_features import find_features
+    from microaligner_tpu_torch.ops.filters import dog_traced, minmax_normalize_u8
+
+    t_true = np.array([[1.0004, 0.0003, 6.4], [-0.0003, 1.0004, -9.1]])
+    truth = inverse2x3(t_true)
+
+    def pair(size):
+        ref = minmax_normalize_u8(texture(rng, size, size, dev)).cpu().numpy()
+        return ref, np.clip(np.round(warp_affine_scipy(ref, t_true)), 0, 255).astype(np.uint8)
+
+    def register(ref, mov, label, **variables):
+        reg = FeatureRegistrator(device=dev)
+        reg.num_pyr_lvl, reg.num_iterations, reg.tile_size, reg.use_dog = 3, 3, 1000, True
+        reg.ref_img, reg.mov_img = ref, mov
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with routes(**variables):
+            counters.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                tmat = reg.register()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = counters.read(f"routes feature {label}", ("K1",))
+        require(got["K5"] == 0, f"routes feature {label}: K5 launched")
+        err = corner_err(tmat, truth, ref.shape)
+        require(err < 0.5, f"routes feature {label}: {err} px from the truth")
+        return tmat, {"s": secs, "truth_err_px": err, "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                      "launches": got}
+
+    ref, mov = pair(n)
+    res, launches = {}, {}
+    whole, res["whole"] = register(ref, mov, "whole")
+    for label, variables in (("FUSED_REGISTER=0", {"FUSED_REGISTER": "0"}), ("FUSED_LEVEL=0", {"FUSED_LEVEL": "0"}),
+                             ("FEATURE_DENSE=0", {"FEATURE_DENSE": "0"})):
+        tmat, res[label] = register(ref, mov, label, **variables)
+        lin, trans = float(np.abs(tmat[:, :2] - whole[:, :2]).max()), float(np.abs(tmat[:, 2] - whole[:, 2]).max())
+        res[label].update(linear_diff=lin, translation_diff_px=trans)
+        if label != "FEATURE_DENSE=0":
+            require(lin < 1e-4 and trans < 0.05, f"routes feature {label}: {lin} linear, {trans} px from whole")
+    # timed again in the reverse order: each route's time is the better of its two runs
+    for label, variables in (("FEATURE_DENSE=0", {"FEATURE_DENSE": "0"}), ("FUSED_LEVEL=0", {"FUSED_LEVEL": "0"}),
+                             ("FUSED_REGISTER=0", {"FUSED_REGISTER": "0"}), ("whole", {})):
+        _, again = register(ref, mov, label, **variables)
+        res[label]["s"] = [res[label]["s"], again["s"]]
+        launches = {k: launches.get(k, 0) + v for k, v in again["launches"].items()}
+    det = dog_traced(torch.from_numpy(ref).to(dev), True)
+    feats = {}
+    for mode in ("1", "0"):
+        with routes(FEATURE_DENSE=mode):
+            feats[mode] = find_features(det, 1000)
+    same = all(torch.equal(getattr(feats["1"], a), getattr(feats["0"], a)) for a in ("coords", "valid", "responses"))
+    require(same, "routes feature: the per-tile path's keypoints differ from the whole level's")
+    del feats, det
+    big_ref, big_mov = pair(n_big)
+    _, res[f"FEATURE_DENSE=0 {n_big}"] = register(big_ref, big_mov, f"FEATURE_DENSE=0 {n_big}", FEATURE_DENSE="0")
+    del big_ref, big_mov
+    for entry in res.values():
+        launches = {k: launches.get(k, 0) + v for k, v in entry.pop("launches").items()}
+    log(f"[routes] FeatureRegistrator on config 1's {n}^2 pair and a {n_big}^2 pair, by route: {res}; the per-tile "
+        f"path's keypoints equal the whole level's")
+    return {"launches": launches, "runs": res}
+
+
+def alternate_routes(dev, rng, counters: "Counters", stack_planes) -> dict:
+    """Phase 10: the JAX package's alternate routes, each variable set for
+    its case only.  Returns one report entry a case, each with the
+    launches counted from 0 around it."""
+    with routes(FLOW_DENSE="0"):
+        parity = parity_run(dev, rng, label="routes parity FLOW_DENSE=0", counters=counters,
+                            kernels=("K1", "K2", "K3", "K4"))
+    require(parity["launches"]["K5"] == 0, "routes parity: K5 launched on the per-tile route")
+    return {"routes_parity": parity,
+            "routes_per_tile_20480": routes_per_tile_20480(dev, rng, counters),
+            "routes_drivers": routes_drivers(dev, rng, counters),
+            "routes_cli_4096": routes_cli_4096(dev, stack_planes, counters),
+            "routes_feature": routes_feature(dev, rng, counters)}
+
+
 def k3_build_lines(ptxas: str) -> dict:
     """Registers, spill bytes, shared memory a block and blocks an SM of the
     two K3 kernels from ``nvcc -Xptxas -v``'s output (empty when the library
@@ -1789,6 +2142,7 @@ def main():
         report["cli_4096"] = cli_4096(dev, stack_planes, counters, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    report.update(alternate_routes(dev, rng, counters, stack_planes))
     del stack_planes
     report["cli_20480"] = cli_20480(dev, rng, counters)
     report["feature"] = feature_pairs(dev, rng, counters)
@@ -1809,8 +2163,8 @@ def main():
                "K5": ("sample_band_multi", "sample.cu", "microaligner_tpu/ops/pallas_sample.py:183"),
                "K6": ("poly_exp5", "poly.cu", "microaligner_tpu/ops/pallas_poly.py:83")}
     # each path's launches, counted from 0 just before it and read just after
-    paths = ("main", "unpaired", "zstack", "cli_4096", "cli_20480", "feature", "chained_4096",
-             "chained_20480", "auto")
+    paths = ("main", "unpaired", "zstack", "cli_4096", "routes_parity", "routes_per_tile_20480", "routes_drivers",
+             "routes_cli_4096", "routes_feature", "cli_20480", "feature", "chained_4096", "chained_20480", "auto")
     launches = {k: sum(report[path]["launches"].get(k, 0) for path in paths) for k in sources}
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"microaligner_tpu_torch/csrc/{src}",

@@ -8,20 +8,28 @@ feature_detection.py:106-108), keypoints move to global coords, and a
 partial affine is fitted on ratio-filtered exact-knn matches.  The per-tile
 budget is ``min(1_000_000 // n_tiles, 5000)`` keypoints.
 
-Two executions, chosen by the JAX package's rule (whole level up to 26 Mpix
-of padded canvas, banded above it), because they give different
-descriptors near tile seams:
+Three executions, chosen as the JAX package chooses them
+(``_dense_level_enabled``, read on every call), because they give
+different descriptors near tile seams:
 
-* whole level: FAST over the zero-padded interior canvas with per-tile
-  frames and top-k, DAISY cubes over the halo-padded canvas, one gather;
-* banded: the same a grid row at a time, cubes over the band with ``halo``
-  rows of context; on one GPU the band map is a loop.
+* whole level, while ``MICROALIGNER_TPU_FEATURE_DENSE`` is ``1``, or
+  ``auto`` (the default) and the padded canvas is at most
+  ``MICROALIGNER_TPU_FEATURE_DENSE_MAX_MPIX`` Mpix (default 26): FAST
+  over the zero-padded interior canvas with per-tile frames and top-k,
+  DAISY cubes over the halo-padded canvas, one gather;
+* per tile, when ``MICROALIGNER_TPU_FEATURE_DENSE=0`` forces it: the
+  tiles with their 51 px halo (``split_into_tiles``), one at a time, FAST
+  top-k on the interior and DAISY on the halo tile at the interior coords;
+* banded otherwise: the whole-level path a grid row at a time, cubes over
+  the band with ``halo`` rows of context; on one GPU the band map is a
+  loop.
 
-The per-tile path (the JAX package's ``MICROALIGNER_TPU_FEATURE_DENSE=0``)
-is not ported.
+FAST is bit-exact across the three: coords, validity and responses agree.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -29,20 +37,20 @@ import torch
 from microaligner_tpu_torch.features.daisy import (
     _gather_descriptors,
     _orientation_cubes,
+    daisy_at_points,
     normalize_descriptors,
 )
-from microaligner_tpu_torch.features.fast import fast_detect_topk_grid
+from microaligner_tpu_torch.features.fast import fast_detect_topk, fast_detect_topk_grid
 from microaligner_tpu_torch.features.match import match_descriptors
 from microaligner_tpu_torch.features.ransac import estimate_affine_partial_2d
 from microaligner_tpu_torch.ops.pad import zero_pad
-from microaligner_tpu_torch.tiles import TileGrid
+from microaligner_tpu_torch.tiles import TileGrid, split_into_tiles
 from microaligner_tpu_torch.utils.device import resolve_device
 from microaligner_tpu_torch.utils.logging import log
 
 __all__ = ["Features", "find_features", "register_img_pair", "match_features"]
 
 HALO = 51  # the reference's overlap for the feature path (tile_registration.py:33)
-DENSE_MAX_MPIX = 26.0  # whole-level path up to this padded canvas, banded above
 
 
 class Features:
@@ -132,11 +140,45 @@ def _find_features_banded(img: torch.Tensor, grid: TileGrid, k: int, normalize: 
     return tuple(torch.cat([o[j] for o in outs]) for j in range(4))
 
 
+def _find_features_per_tile(img: torch.Tensor, grid: TileGrid, k: int, normalize: bool):
+    """One halo tile at a time: FAST top-k on its interior, DAISY on the
+    whole halo tile at the interior coords (the reference's consistent
+    (-51, -51) offset, which cancels between ref and mov)."""
+    tiles = split_into_tiles(img, grid)  # (N, tile + 102, tile + 102)
+    outs = []
+    for tile in tiles:
+        coords, resp, valid = fast_detect_topk(tile[HALO:-HALO, HALO:-HALO], k, threshold=1)
+        desc = daisy_at_points(tile.to(torch.float32), coords, normalize=normalize)
+        outs.append((coords, desc, valid, resp))
+    return tuple(torch.stack([o[j] for o in outs]) for j in range(4))
+
+
+def _dense_level_enabled(grid: TileGrid) -> bool:
+    """The JAX package's gate of the whole-level path:
+    ``MICROALIGNER_TPU_FEATURE_DENSE`` ``1`` forces it, ``0`` forbids it,
+    ``auto`` (the default) takes it while the padded canvas is at most
+    ``MICROALIGNER_TPU_FEATURE_DENSE_MAX_MPIX`` Mpix (default 26)."""
+    mode = os.environ.get("MICROALIGNER_TPU_FEATURE_DENSE", "auto")
+    if mode == "0":
+        return False
+    if mode == "1":
+        return True
+    max_mpix = float(os.environ.get("MICROALIGNER_TPU_FEATURE_DENSE_MAX_MPIX", "26"))
+    return grid.padded_h * grid.padded_w <= max_mpix * 1e6
+
+
+def _per_tile_forced() -> bool:
+    return os.environ.get("MICROALIGNER_TPU_FEATURE_DENSE", "auto") == "0"
+
+
 def find_features_tiled(img: torch.Tensor, grid: TileGrid, k: int, normalize: bool = True):
     """Tiled FAST + DAISY -> flat global (coords (N*k, 2), descriptors
-    (N*k, 200), valid (N*k,), responses (N*k,))."""
-    if grid.padded_h * grid.padded_w <= DENSE_MAX_MPIX * 1e6:
+    (N*k, 200), valid (N*k,), responses (N*k,)): the whole level, per tile
+    or banded, as the JAX package's ``_find_features_tiled_jit`` picks."""
+    if _dense_level_enabled(grid):
         coords, desc, valid, resp = _find_features_dense(img, grid, k, normalize)
+    elif _per_tile_forced():
+        coords, desc, valid, resp = _find_features_per_tile(img, grid, k, normalize)
     else:
         coords, desc, valid, resp = _find_features_banded(img, grid, k, normalize)
     coords = coords + _tile_origins(grid, img.device)[:, None, :]

@@ -1,39 +1,74 @@
-"""Tiled Farneback flow as full-width row bands.
+"""Tiled Farneback flow: full-width row bands, or halo tiles.
 
-PyTorch counterpart of ``microaligner_tpu/optflow/flow_calc.py`` on its
-default path (``MICROALIGNER_TPU_FLOW_DENSE=1``): below two tiles the flow is
-computed on the whole image; otherwise the image is cut into full-width row
-bands of ``band_rows`` interior rows, each with ``overlap`` rows and columns
-of halo (zeros outside the image), Farneback runs per band, and the band
-interiors are stitched.  The band decomposition is the JAX package's, so the
-flow near band seams agrees with it.
+PyTorch counterpart of ``microaligner_tpu/optflow/flow_calc.py``: below two
+tiles the flow is computed on the whole image; otherwise the JAX package's
+variable ``MICROALIGNER_TPU_FLOW_DENSE``, read on every call of
+:func:`calc_flow_tiled`, :func:`calc_flow_and_warp_tiled` and
+``TileFlowCalc.calc_flow``, picks the decomposition:
 
-The per-tile strict-parity path (``MICROALIGNER_TPU_FLOW_DENSE=0``) is not
-ported.
+* unset or anything but ``0`` (the default): full-width row bands of
+  ``band_rows`` interior rows, each with ``overlap`` rows and columns of
+  halo (zeros outside the image), Farneback a band, the band interiors
+  stitched;
+* ``0``: the strict-parity per-tile route, the reference's exact tile
+  decomposition.  Halo windows of ``tile + 2 overlap`` are sliced from the
+  zero canvas (``tiles.pad_canvas``) ``MICROALIGNER_TPU_FLOW_TILE_BATCH``
+  at a time (default 8), Farneback runs on the chunk (one K2 launch,
+  ``num_iter`` K3 and ``num_iter - 1`` K4 launches), and the tile interiors
+  are stitched.  The fused post-warp pulls each window of the warp source
+  through K1 by the window's flow with a zero halo.
+
+Both decompositions are the JAX package's, so the flow near band and tile
+seams agrees with it on either route.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 
-from microaligner_tpu_torch.ops.warp import warp_band
+from microaligner_tpu_torch.ops.filters import round_to_dtype
+from microaligner_tpu_torch.ops.warp import warp_band, warp_with_flow_parts_batched
 from microaligner_tpu_torch.optflow.farneback import _farneback_core_parts, farneback
 from microaligner_tpu_torch.parallel import tile_map
-from microaligner_tpu_torch.tiles import TileGrid
+from microaligner_tpu_torch.tiles import TileGrid, pad_canvas, stitch_interiors, tile_origins
 from microaligner_tpu_torch.utils.device import resolve_device
 
 __all__ = [
     "TileFlowCalc",
     "band_rows_for",
     "band_slab",
+    "dense_banded",
+    "calc_flow_tiled",
+    "calc_flow_and_warp_tiled",
     "calc_flow_dense_banded",
     "calc_flow_and_warp_dense_banded",
 ]
 
 _BAND_PIXELS = 22e6  # band working-set budget of the JAX package (see band_rows_for)
+_TILE_BATCH = 8  # halo windows a chunk of the per-tile route (the JAX package's _TILE_BATCH)
+
+
+def dense_banded() -> bool:
+    """The JAX package's ``MICROALIGNER_TPU_FLOW_DENSE`` test: row bands
+    unless it is ``0``."""
+    return os.environ.get("MICROALIGNER_TPU_FLOW_DENSE", "1") != "0"
+
+
+def tile_batch() -> int:
+    """Halo windows a chunk of the per-tile route:
+    ``MICROALIGNER_TPU_FLOW_TILE_BATCH``, default 8, as the JAX package."""
+    return int(os.environ.get("MICROALIGNER_TPU_FLOW_TILE_BATCH", _TILE_BATCH))
+
+
+def halo_windows(canvas: torch.Tensor, origins: torch.Tensor, grid: TileGrid) -> torch.Tensor:
+    """(B, tile + 2 overlap, ...) halo windows of a :func:`pad_canvas` at the
+    (B, 2) ``origins``, in the canvas's dtype."""
+    th, tw = grid.tile_shape
+    return torch.stack([canvas[r : r + th, c : c + tw] for r, c in origins.tolist()])
 
 
 def band_rows_for(grid: TileGrid, band_rows: Optional[int] = None) -> int:
@@ -91,6 +126,74 @@ def _dense_banded_core(ref_img, mov_img, warp_src, grid: TileGrid, win_size: int
     return flow if warped is None else flow + (warped,)
 
 
+def _interior(grid: TileGrid) -> tuple:
+    o = grid.overlap
+    return (slice(None), slice(o, o + grid.tile_h), slice(o, o + grid.tile_w))
+
+
+def _calc_flow_tiled(ref_img, mov_img, grid: TileGrid, win_size: int, num_iter: int,
+                     batch: int) -> torch.Tensor:
+    """The per-tile route: ``batch`` halo windows a chunk sliced from the
+    zero canvases in the input dtype, Farneback on the chunk as float32,
+    the interiors stitched into the (H, W, 2) flow."""
+    canvas_r, canvas_m = pad_canvas(ref_img, grid), pad_canvas(mov_img, grid)
+    sl = _interior(grid)
+
+    def chunk(origins):
+        wr = halo_windows(canvas_r, origins, grid).to(torch.float32)
+        wm = halo_windows(canvas_m, origins, grid).to(torch.float32)
+        fx, fy = _farneback_core_parts(wm, wr, win_size, num_iter, 1, 1.7)
+        return fx[sl], fy[sl]
+
+    fx, fy = tile_map(chunk, (torch.from_numpy(tile_origins(grid)),), batch=batch)
+    return torch.stack([stitch_interiors(fx, grid), stitch_interiors(fy, grid)], dim=-1)
+
+
+def _calc_flow_and_warp_tiled(ref_img, mov_img, warp_src, grid: TileGrid, win_size: int,
+                              num_iter: int, out_dtype: torch.dtype, batch: int):
+    """:func:`_calc_flow_tiled` fused with the post-flow warp: each chunk's
+    windows of ``warp_src`` are pulled through K1 by the windows' flow with
+    a zero halo (only interiors are kept, as in the per-tile warp) and
+    rounded to ``out_dtype`` inside the chunk."""
+    canvases = [pad_canvas(img, grid) for img in (ref_img, mov_img, warp_src)]
+    o = grid.overlap
+    interior = torch.zeros(grid.tile_shape, dtype=torch.float32, device=ref_img.device)
+    interior[o : o + grid.tile_h, o : o + grid.tile_w] = 1.0
+    sl = _interior(grid)
+
+    def chunk(origins):
+        wr, wm, ws = (halo_windows(c, origins, grid).to(torch.float32) for c in canvases)
+        fx, fy = _farneback_core_parts(wm, wr, win_size, num_iter, 1, 1.7)
+        warped = warp_with_flow_parts_batched(ws, fx * interior, fy * interior)
+        return fx[sl], fy[sl], round_to_dtype(warped[sl], out_dtype)
+
+    fx, fy, warped = tile_map(chunk, (torch.from_numpy(tile_origins(grid)),), batch=batch)
+    flow = torch.stack([stitch_interiors(fx, grid), stitch_interiors(fy, grid)], dim=-1)
+    return flow, stitch_interiors(warped, grid)
+
+
+def calc_flow_tiled(ref_img, mov_img, grid: TileGrid, win_size: int, num_iter: int,
+                    band_rows: Optional[int] = None) -> torch.Tensor:
+    """(H, W) pair -> (H, W, 2) flow, banded or per tile as
+    ``MICROALIGNER_TPU_FLOW_DENSE`` says (``band_rows`` is the bands')."""
+    if dense_banded():
+        return calc_flow_dense_banded(ref_img, mov_img, grid, win_size, num_iter, band_rows)
+    return _calc_flow_tiled(ref_img, mov_img, grid, win_size, num_iter, tile_batch())
+
+
+def calc_flow_and_warp_tiled(ref_img, mov_img, warp_src, grid: TileGrid, win_size: int,
+                             num_iter: int, out_dtype: torch.dtype,
+                             band_rows: Optional[int] = None):
+    """:func:`calc_flow_tiled` fused with the post-flow warp of
+    ``warp_src``: ((H, W, 2) flow, (H, W) warped in ``out_dtype``), exactly
+    the flow followed by ``warper.warp_tiled_dtype`` on the same route."""
+    if dense_banded():
+        return calc_flow_and_warp_dense_banded(ref_img, mov_img, warp_src, grid, win_size,
+                                               num_iter, out_dtype, band_rows)
+    return _calc_flow_and_warp_tiled(ref_img, mov_img, warp_src, grid, win_size, num_iter,
+                                     out_dtype, tile_batch())
+
+
 def calc_flow_dense_banded(ref_img, mov_img, grid: TileGrid, win_size: int, num_iter: int,
                            band_rows: Optional[int] = None) -> torch.Tensor:
     """Full-width row-band Farneback: (H, W) pair -> (H, W, 2) flow."""
@@ -131,8 +234,7 @@ class TileFlowCalc:
             flow = farneback(mov, ref, win_size=self.win_size, num_iter=self.num_iter)
         else:
             grid = TileGrid.for_image(ref.shape, self.tile_size, self.overlap)
-            flow = calc_flow_dense_banded(ref, mov, grid, self.win_size, self.num_iter,
-                                          self.band_rows)
+            flow = calc_flow_tiled(ref, mov, grid, self.win_size, self.num_iter, self.band_rows)
         self.ref_img = np.array([])
         self.mov_img = np.array([])
         return flow.cpu().numpy()

@@ -1,24 +1,40 @@
 """OptFlowRegistrator: multi-scale tiled Farneback registration.
 
-PyTorch counterpart of ``microaligner_tpu/optflow/registrator.py`` on its
-default path (``_register_whole``): both Gaussian pyramids, then per level,
-coarsest first, the pre-warp by the accumulated flow, optional DoG, the
-banded (or whole-image) Farneback fused with the post-warp, the NMI gate,
-the tile-wise flow composition and the pyrUp to the next level.
+PyTorch counterpart of ``microaligner_tpu/optflow/registrator.py``: both
+Gaussian pyramids, then per level, coarsest first, the pre-warp by the
+accumulated flow, optional DoG, the banded or per-tile (or whole-image)
+Farneback fused with the post-warp, the NMI gate, the tile-wise flow
+composition and the pyrUp to the next level.
 
-The accept/reject decision of each level is a 0-d device tensor that selects
-the next flow with ``torch.where``, so nothing is read back to the host until
-the end, where all gate scores are fetched at once for the log.  The JAX
-package's quirks are kept: the last level is upscaled without scaling its
-values, ``replicate_reject_upscale_bug`` doubles a rejected mid level's flow
+``register_device`` takes one of the JAX package's three drivers, chosen
+by its variables on each call:
+
+* ``MICROALIGNER_TPU_CARRY_LEVEL=0``: the stepwise host loop
+  (``_register_stepwise``): each level's gate scores are read back and the
+  host picks the next flow (accept: compose and upscale; reject: keep,
+  upscale or zero);
+* else ``MICROALIGNER_TPU_WHOLE_REGISTER`` other than ``1``: the per-level
+  carry loop (``_register_per_level``), one ``_fused_level_carry`` a level
+  timed on its own;
+* else (the default) the whole registration (``_register_whole``).
+
+In the last two the accept/reject decision of each level is a 0-d device
+tensor that selects the next flow with ``torch.where``, so nothing is read
+back to the host until the end, where all gate scores are fetched at once
+for the log.  In eager PyTorch those two make the same launches; the JAX
+package's difference is one compiled program against one a level.  Every
+level goes through ``MICROALIGNER_TPU_FLOW_DENSE``'s route for its flow,
+its pre-warp and its post-warp, under all three drivers.  The JAX package's
+quirks are kept: the last level is upscaled without scaling its values
+(one pyrUp from the original flow, ``_upscale_flow_to_full_res``),
+``replicate_reject_upscale_bug`` doubles a rejected mid level's flow
 twice, and a single level at (almost) full size keeps its raw flow.
-
-The stepwise and host-carry variants (``MICROALIGNER_TPU_CARRY_LEVEL=0``,
-``MICROALIGNER_TPU_WHOLE_REGISTER=0``) are not ported.
 """
 
 from __future__ import annotations
 
+import math
+import os
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -27,8 +43,8 @@ import torch
 from microaligner_tpu_torch.ops.filters import dog_traced, pyr_down, pyr_up
 from microaligner_tpu_torch.ops.mutual_info import mi_tiled_traced
 from microaligner_tpu_torch.ops.warp import compose_flows
-from microaligner_tpu_torch.optflow.farneback import _farneback_core_parts
-from microaligner_tpu_torch.optflow.flow_calc import calc_flow_and_warp_dense_banded
+from microaligner_tpu_torch.optflow.farneback import _farneback_core_parts, farneback
+from microaligner_tpu_torch.optflow.flow_calc import calc_flow_and_warp_tiled, calc_flow_tiled
 from microaligner_tpu_torch.optflow.warper import (
     compose_flows_tiled,
     torch_dtype_of,
@@ -58,8 +74,9 @@ def _fused_level(ref_lvl, mov_lvl, m_flow, grid: TileGrid, win_size: int, num_it
                  use_dog: bool, tile_size: int, pre_warp: bool, whole_image: bool,
                  dtype: torch.dtype, band_rows: Optional[int]):
     """One pyramid level: pre-warp, DoG, Farneback + post-warp, and both NMI
-    gate scores.  Returns ``(this_flow (H, W, 2), mi_after, mi_before)``
-    with the scores as 0-d device tensors."""
+    gate scores, each warp and the flow on ``MICROALIGNER_TPU_FLOW_DENSE``'s
+    route.  Returns ``(this_flow (H, W, 2), mi_after, mi_before)`` with the
+    scores as 0-d device tensors."""
     mov_this = mov_lvl
     if pre_warp:
         mov_this = warp_tiled_dtype(mov_lvl, m_flow, grid, dtype, band_rows)
@@ -73,7 +90,7 @@ def _fused_level(ref_lvl, mov_lvl, m_flow, grid: TileGrid, win_size: int, num_it
         this_flow = torch.stack([fx[0], fy[0]], dim=-1)
         mov_warped = warp_tiled_dtype(mov_this, this_flow, grid, dtype, band_rows)
     else:
-        this_flow, mov_warped = calc_flow_and_warp_dense_banded(
+        this_flow, mov_warped = calc_flow_and_warp_tiled(
             ref_dog, mov_dog, mov_this, grid, win_size, num_iter, dtype, band_rows
         )
     gate_ref = dog_traced(ref_lvl, True)
@@ -138,17 +155,14 @@ def _build_pyramid(arr: torch.Tensor, num_pyr_lvl: int, use_full_res: bool):
     return pyramid, factors
 
 
-def _register_whole(ref_img: torch.Tensor, mov_img: torch.Tensor, num_pyr_lvl: int,
-                    use_full_res: bool, tile_size: int, overlap: int, win_size: int,
-                    num_iter: int, use_dog: bool, reject_mult: int,
-                    band_rows: Optional[int] = None):
-    """The whole multi-level registration.  Returns ``(flow (H, W, 2),
-    [(mi_after, mi_before) per level as 0-d device tensors], factors)``."""
-    ref_pyr, factors = _build_pyramid(ref_img, num_pyr_lvl, use_full_res)
-    mov_pyr, _ = _build_pyramid(mov_img, num_pyr_lvl, use_full_res)
-    dtype = mov_img.dtype
+def _carry_levels(ref_pyr, mov_pyr, factors, full_shape, tile_size: int, overlap: int,
+                  win_size: int, num_iter: int, use_dog: bool, use_full_res: bool,
+                  reject_mult: int, band_rows: Optional[int]):
+    """``_fused_level_carry`` over the levels, coarsest first.  Returns
+    ``(flow (H, W, 2), [(mi_after, mi_before) per level as 0-d device
+    tensors])``."""
+    dtype = mov_pyr[-1].dtype
     num_lvl = len(factors)
-    full_shape = tuple(int(s) for s in mov_img.shape)
     m_flow = None
     scores = []
     for lvl in range(num_lvl):
@@ -157,13 +171,27 @@ def _register_whole(ref_img: torch.Tensor, mov_img: torch.Tensor, num_pyr_lvl: i
         is_first = lvl == 0
         is_last = lvl == num_lvl - 1
         next_shape = full_shape if is_last else tuple(int(s) for s in mov_pyr[lvl + 1].shape)
-        with stage_timer(f"lvl{factors[lvl]} fused level+carry", ref_img.device):
+        with stage_timer(f"lvl{factors[lvl]} fused level+carry", mov_pyr[lvl].device):
             m_flow, mi_after, mi_before = _fused_level_carry(
                 ref_pyr[lvl], mov_pyr[lvl], m_flow, grid, win_size, num_iter, use_dog,
                 tile_size, not is_first, max(shape) / tile_size < 2, dtype, band_rows,
                 is_first, is_last, next_shape, full_shape, use_full_res, reject_mult,
             )
         scores.append((mi_after, mi_before))
+    return m_flow, scores
+
+
+def _register_whole(ref_img: torch.Tensor, mov_img: torch.Tensor, num_pyr_lvl: int,
+                    use_full_res: bool, tile_size: int, overlap: int, win_size: int,
+                    num_iter: int, use_dog: bool, reject_mult: int,
+                    band_rows: Optional[int] = None):
+    """The whole multi-level registration.  Returns ``(flow (H, W, 2),
+    [(mi_after, mi_before) per level as 0-d device tensors], factors)``."""
+    ref_pyr, factors = _build_pyramid(ref_img, num_pyr_lvl, use_full_res)
+    mov_pyr, _ = _build_pyramid(mov_img, num_pyr_lvl, use_full_res)
+    m_flow, scores = _carry_levels(ref_pyr, mov_pyr, factors, tuple(int(s) for s in mov_img.shape),
+                                   tile_size, overlap, win_size, num_iter, use_dog, use_full_res,
+                                   reject_mult, band_rows)
     return m_flow, scores, factors
 
 
@@ -213,13 +241,54 @@ class OptFlowRegistrator:
         """The full-resolution (H, W, 2) flow aligning mov to ref, on the host."""
         return self.register_device().cpu().numpy()
 
+    def _win_size(self) -> int:
+        return self.overlap - (1 - self.overlap % 2)  # tied to the halo width
+
+    def _reject_mult(self) -> int:
+        return 4 if self.replicate_reject_upscale_bug else 2
+
+    def _log_scores(self) -> None:
+        for factor, mi_after, mi_before in self.last_scores:
+            log("Pyramid factor", factor)
+            log("    MI score after:", mi_after, "| MI score before:", mi_before)
+            log("    Better alignment than before" if mi_after > mi_before
+                else "    Worse alignment than before")
+
+    def _fetch_scores(self, factors, scores) -> None:
+        """Read every level's gate scores back at once into ``last_scores``."""
+        fetched = torch.stack([torch.stack(s) for s in scores]).cpu().tolist()
+        self.last_scores = [(f, a, b) for f, (a, b) in zip(factors, fetched)]
+
     def register_device(self) -> torch.Tensor:
         """:meth:`register` but the flow stays on ``device``.  The per-level
-        gate scores are read back once, at the end, into ``last_scores`` as
-        ``(factor, mi_after, mi_before)``."""
+        gate scores land in ``last_scores`` as ``(factor, mi_after,
+        mi_before)``: read back once, at the end, on the whole and
+        per-level drivers, level by level on the stepwise one."""
         check_img_is_provided(self._ref_img, "ref")
         check_img_is_provided(self._mov_img, "mov")
         check_img_dims_match(self._ref_img, self._mov_img)
+        self._check_levels()
+        torch_dtype_of(self._mov_img)  # raises for dtypes the warp cannot keep
+        if os.environ.get("MICROALIGNER_TPU_CARRY_LEVEL", "1") == "0":
+            return self._register_stepwise()
+        if os.environ.get("MICROALIGNER_TPU_WHOLE_REGISTER", "1") != "1":
+            return self._register_per_level()
+        ref, mov = self._on_device(self._ref_img), self._on_device(self._mov_img)
+        with stage_timer("whole register", ref.device):
+            m_flow, scores, factors = _register_whole(
+                ref, mov, self.num_pyr_lvl, self.use_full_res_img, self.tile_size,
+                self.overlap, self._win_size(), self.num_iterations, self.use_dog,
+                self._reject_mult(), self.band_rows,
+            )
+        self._fetch_scores(factors, scores)
+        self._log_scores()
+        return m_flow
+
+    def _on_device(self, img) -> torch.Tensor:
+        return torch.as_tensor(img).to(self.device)
+
+    def _check_levels(self) -> None:
+        """The pyramid's errors, raised before any device work."""
         if self.num_pyr_lvl < 0:
             raise ValueError("Number of pyramid levels cannot be less than 0")
         if self.num_pyr_lvl == 0 and not self.use_full_res_img:
@@ -237,21 +306,117 @@ class OptFlowRegistrator:
                 "(min dim 100 px after downscale) and use_full_res_img is "
                 "False; enable use_full_res_img or reduce num_pyr_lvl"
             )
-        torch_dtype_of(self._mov_img)  # raises for dtypes the warp cannot keep
-        ref = torch.as_tensor(self._ref_img).to(self.device)
-        mov = torch.as_tensor(self._mov_img).to(self.device)
-        win_size = self.overlap - (1 - self.overlap % 2)
-        with stage_timer("whole register", ref.device):
-            m_flow, scores, factors = _register_whole(
-                ref, mov, self.num_pyr_lvl, self.use_full_res_img, self.tile_size,
-                self.overlap, win_size, self.num_iterations, self.use_dog,
-                4 if self.replicate_reject_upscale_bug else 2, self.band_rows,
-            )
-        fetched = torch.stack([torch.stack(s) for s in scores]).cpu().tolist()
-        self.last_scores = [(f, a, b) for f, (a, b) in zip(factors, fetched)]
-        for factor, mi_after, mi_before in self.last_scores:
+
+    def _register_per_level(self) -> torch.Tensor:
+        """The per-level carry loop (``MICROALIGNER_TPU_WHOLE_REGISTER=0``):
+        one ``_fused_level_carry`` a level, each timed on its own, the gate
+        scores read back at the end."""
+        ref_pyr, factors = self._generate_img_pyr(self._on_device(self._ref_img))
+        mov_pyr, _ = self._generate_img_pyr(self._on_device(self._mov_img))
+        m_flow, scores = _carry_levels(
+            ref_pyr, mov_pyr, factors, tuple(int(s) for s in self._mov_img.shape), self.tile_size,
+            self.overlap, self._win_size(), self.num_iterations, self.use_dog,
+            self.use_full_res_img, self._reject_mult(), self.band_rows)
+        self._fetch_scores(factors, scores)
+        self._log_scores()
+        return m_flow
+
+    def _register_stepwise(self) -> torch.Tensor:
+        """The host-driven accept/reject loop (``MICROALIGNER_TPU_CARRY_LEVEL=0``):
+        each level's two gate scores are read back, and the host picks the
+        next flow (reference optflow_registrator.py:134-169)."""
+        ref_pyr, factors = self._generate_img_pyr(self._on_device(self._ref_img))
+        mov_pyr, _ = self._generate_img_pyr(self._on_device(self._mov_img))
+        dtype = mov_pyr[-1].dtype
+        full_shape = tuple(int(s) for s in self._mov_img.shape)
+        num_lvl = len(factors)
+        m_flow = None
+        self.last_scores = []
+        for lvl, factor in enumerate(factors):
             log("Pyramid factor", factor)
+            shape = tuple(int(s) for s in mov_pyr[lvl].shape)
+            grid = TileGrid.for_image(shape, self.tile_size, self.overlap)
+            with stage_timer(f"lvl{factor} fused level", mov_pyr[lvl].device):
+                this_flow, mi_after, mi_before = _fused_level(
+                    ref_pyr[lvl], mov_pyr[lvl], m_flow, grid, self._win_size(), self.num_iterations,
+                    self.use_dog, self.tile_size, lvl != 0, max(shape) / self.tile_size < 2, dtype,
+                    self.band_rows,
+                )
+                mi_after, mi_before = torch.stack([mi_after, mi_before]).cpu().tolist()
+            self.last_scores.append((factor, mi_after, mi_before))
             log("    MI score after:", mi_after, "| MI score before:", mi_before)
-            log("    Better alignment than before" if mi_after > mi_before
-                else "    Worse alignment than before")
+            is_last = lvl == num_lvl - 1
+            next_shape = full_shape if is_last else tuple(int(s) for s in mov_pyr[lvl + 1].shape)
+            if mi_after > mi_before:
+                log("    Better alignment than before")
+                if lvl == 0:
+                    if num_lvl > 1:
+                        m_flow = self._pyr_up_dev(this_flow * 2, next_shape)
+                    else:
+                        m_flow = self._upscale_flow_to_full_res(this_flow, factor)
+                elif is_last:
+                    m_flow = self._merge_list_of_flows([m_flow, this_flow])
+                    if not self.use_full_res_img:
+                        m_flow = self._upscale_flow_to_full_res(m_flow, factor)
+                else:
+                    m_flow = self._merge_list_of_flows([m_flow, this_flow])
+                    m_flow = self._pyr_up_dev(m_flow * 2, next_shape)
+            else:
+                log("    Worse alignment than before")
+                if lvl == 0:
+                    m_flow = torch.zeros(next_shape + (2,), dtype=torch.float32, device=this_flow.device)
+                elif is_last:
+                    if not self.use_full_res_img:
+                        m_flow = self._pyr_up_dev(m_flow * 2, full_shape)
+                else:
+                    m_flow = self._pyr_up_dev(m_flow * self._reject_mult(), next_shape)
+        return m_flow
+
+    # -- helpers -----------------------------------------------------------
+
+    def _calc_flow_dev(self, ref_img: torch.Tensor, mov_img: torch.Tensor, win_size: int) -> torch.Tensor:
+        """``TileFlowCalc.calc_flow`` on the device (reference
+        flow_calc.py:59-84): the whole image below two tiles, else
+        ``MICROALIGNER_TPU_FLOW_DENSE``'s route."""
+        if max(ref_img.shape) / self.tile_size < 2:
+            return farneback(mov_img, ref_img, win_size=win_size, num_iter=self.num_iterations)
+        grid = TileGrid.for_image(tuple(ref_img.shape), self.tile_size, self.overlap)
+        return calc_flow_tiled(ref_img, mov_img, grid, win_size, self.num_iterations, self.band_rows)
+
+    @staticmethod
+    def _pyr_up_dev(flow: torch.Tensor, dst_shape) -> torch.Tensor:
+        return pyr_up(flow, (int(dst_shape[0]), int(dst_shape[1])))
+
+    def _generate_img_pyr(self, arr: torch.Tensor) -> Tuple[List[torch.Tensor], List[int]]:
+        """Smallest-first pyramid on ``arr``'s device; stops before a side
+        would drop below 100 px (optflow_registrator.py:175-202)."""
+        self._check_levels()
+        return _build_pyramid(arr, self.num_pyr_lvl, self.use_full_res_img)
+
+    def _upscale_flow_to_full_res(self, flow: torch.Tensor, pyramid_factor: int) -> torch.Tensor:
+        """The reference's chain of pyrUps to full resolution
+        (optflow_registrator.py:204-215), quirk kept: its last step
+        upscales the ORIGINAL flow, so the result is one pyrUp from ``flow``
+        to the full size, values not doubled (the caller's job)."""
+        if abs(flow.shape[0] - self._ref_img.shape[0]) <= 1:
+            return flow
+        num_lvls = int(math.log2(pyramid_factor))
+        upscaled = flow
+        for i in range(num_lvls):
+            if i == num_lvls - 1:
+                upscaled = self._pyr_up_dev(flow, self._ref_img.shape)
+            else:
+                h, w = upscaled.shape[:2]
+                upscaled = self._pyr_up_dev(upscaled, (h * 2, w * 2))
+        return upscaled
+
+    def _merge_flow_in_tiles(self, flow1: torch.Tensor, flow2: torch.Tensor) -> torch.Tensor:
+        """Tile-wise flow composition (optflow_registrator.py:217-233)."""
+        grid = TileGrid.for_image(tuple(flow1.shape[:2]), self.tile_size, self.overlap)
+        return compose_flows_tiled(flow1, flow2, grid)
+
+    def _merge_list_of_flows(self, flow_list: List[torch.Tensor]) -> torch.Tensor:
+        m_flow = flow_list[0]
+        for nxt in flow_list[1:]:
+            m_flow = self._merge_flow_in_tiles(m_flow, nxt)
         return m_flow

@@ -1,12 +1,23 @@
 """Tiled flow-field warping and composition, and the public ``Warper``.
 
-PyTorch counterpart of ``microaligner_tpu/optflow/warper.py`` on its default
-(row-band) path.  A pixel pulls only from within its band's halo-expanded
-slab, so a displacement beyond ``overlap`` reads zeros, as in the
-reference's per-tile ``cv.remap``.  The band warps of one plane
-(:func:`warp_tiled_dtype`) and of N planes by one flow
-(:func:`warp_planes_tiled`) are one K5 launch a band, typed in and out
-(``sample_band_multi``); the tiled composition samples through K1.
+PyTorch counterpart of ``microaligner_tpu/optflow/warper.py``.  The one-plane
+warp (:func:`warp_tiled_dtype`, and so the ``Warper``, the per-level pre-
+and post-warps and the CLI's per-plane apply) takes the route that
+``MICROALIGNER_TPU_FLOW_DENSE`` names on each call, as the JAX package's
+``_warp_tiled_impl`` does:
+
+* row bands (the default): a pixel pulls only from within its band's
+  halo-expanded slab, one K5 launch a band, typed in and out
+  (``sample_band_multi``);
+* ``0``, per tile: a pixel pulls only from within its tile's halo window,
+  ``_TILE_BATCH`` windows a chunk cast to float32 and pulled through K1 by
+  the tile's interior flow with a zero halo, rounded inside the chunk.
+
+Either way a displacement beyond ``overlap`` reads zeros, as in the
+reference's per-tile ``cv.remap``; the two differ where a displacement
+leaves a tile's halo but not its band's slab.  N planes by one flow
+(:func:`warp_planes_tiled`) are always banded, as in the JAX package; the
+tiled composition samples through K1.
 """
 
 from __future__ import annotations
@@ -16,10 +27,22 @@ from typing import Optional
 import numpy as np
 import torch
 
-from microaligner_tpu_torch.ops.warp import compose_flows_batched, warp_band
-from microaligner_tpu_torch.optflow.flow_calc import band_rows_for
+from microaligner_tpu_torch.ops.filters import round_to_dtype
+from microaligner_tpu_torch.ops.pad import zero_pad
+from microaligner_tpu_torch.ops.warp import (
+    compose_flows_batched,
+    warp_band,
+    warp_with_flow_parts_batched,
+)
+from microaligner_tpu_torch.optflow.flow_calc import band_rows_for, dense_banded, halo_windows
 from microaligner_tpu_torch.parallel import tile_map
-from microaligner_tpu_torch.tiles import TileGrid, pad_canvas, stitch_interiors, tile_origins
+from microaligner_tpu_torch.tiles import (
+    TileGrid,
+    pad_canvas,
+    split_interiors,
+    stitch_interiors,
+    tile_origins,
+)
 from microaligner_tpu_torch.utils.device import resolve_device
 
 __all__ = [
@@ -33,6 +56,7 @@ __all__ = [
 ]
 
 _COMPOSE_BATCH = 32  # halo windows composed per chunk (bounds the live working set)
+_TILE_BATCH = 32  # halo windows warped per chunk of the per-tile route (the JAX package's)
 
 
 def warp_tiled(image: torch.Tensor, flow: torch.Tensor, grid: TileGrid,
@@ -44,12 +68,39 @@ def warp_tiled(image: torch.Tensor, flow: torch.Tensor, grid: TileGrid,
 def warp_tiled_dtype(image: torch.Tensor, flow: torch.Tensor, grid: TileGrid,
                      dtype: torch.dtype, band_rows: Optional[int] = None) -> torch.Tensor:
     """:func:`warp_tiled` rounded half to even and clipped to ``dtype``
-    (``cv.remap`` on integer images), inside each band: each band's slab
-    (zeros outside the image) is pulled by the band's flow, zero on the
-    halo, and its interior kept.  :func:`warp_planes_tiled` on one plane:
-    one K5 launch a band where the image's dtype is ``dtype``, nothing
-    allocated but the output."""
+    (``cv.remap`` on integer images) inside each band or chunk of tiles,
+    on the route ``MICROALIGNER_TPU_FLOW_DENSE`` names.  Banded: each
+    band's slab (zeros outside the image) is pulled by the band's flow,
+    zero on the halo, and its interior kept; that is :func:`warp_planes_tiled`
+    on one plane, one K5 launch a band where the image's dtype is
+    ``dtype``, nothing allocated but the output.  Per tile:
+    :func:`_warp_tiled`."""
+    if not dense_banded():
+        return _warp_tiled(image, flow, grid, dtype)
     return warp_planes_tiled(image[None], flow, grid, dtype, band_rows)[0]
+
+
+def _warp_tiled(image: torch.Tensor, flow: torch.Tensor, grid: TileGrid,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The per-tile warp (the JAX package's ``_warp_tiled_jit``): halo
+    windows of the image's zero canvas, in its stored dtype,
+    ``_TILE_BATCH`` at a time, cast to float32 and pulled through K1 by the
+    tile's interior flow with a zero halo (only interior outputs are kept),
+    rounded to ``dtype`` inside the chunk and stitched."""
+    o = grid.overlap
+    canvas = pad_canvas(image, grid)
+    flow = flow.to(torch.float32)
+    fx_int = split_interiors(flow[..., 0], grid)
+    fy_int = split_interiors(flow[..., 1], grid)
+    sl = (slice(None), slice(o, o + grid.tile_h), slice(o, o + grid.tile_w))
+
+    def chunk(origins, fxt, fyt):
+        wins = halo_windows(canvas, origins, grid).to(torch.float32)
+        warped = warp_with_flow_parts_batched(wins, zero_pad(fxt, o, o, o, o), zero_pad(fyt, o, o, o, o))
+        return round_to_dtype(warped[sl], dtype)
+
+    warped = tile_map(chunk, (torch.from_numpy(tile_origins(grid)), fx_int, fy_int), batch=_TILE_BATCH)
+    return stitch_interiors(warped, grid)
 
 
 def warp_planes_tiled(imgs: torch.Tensor, flow: torch.Tensor, grid: TileGrid,
@@ -58,7 +109,8 @@ def warp_planes_tiled(imgs: torch.Tensor, flow: torch.Tensor, grid: TileGrid,
     rounded half to even and clipped to ``dtype`` inside each band.
 
     The multi-channel/z apply shape (reference __main__.py:288-302), with the
-    per-band halo semantics of :func:`warp_tiled_dtype` for every plane: each
+    per-band halo semantics of the banded :func:`warp_tiled_dtype` for every
+    plane, on either route (the JAX package's ``warp_planes_tiled``): each
     band's slab of the zero canvas (padded to a whole number of bands) is
     pulled by the band's flow, which is zero on the halo.  One K5 launch a
     band (:func:`warp_band`, ``sample_band_multi``) reads the planes in their
@@ -88,14 +140,11 @@ def compose_flows_tiled(flow1: torch.Tensor, flow2: torch.Tensor, grid: TileGrid
     (441 windows of 1200^2 at 20480^2).
     """
     o = grid.overlap
-    th, tw = grid.tile_shape
     c1 = pad_canvas(flow1, grid)
     c2 = pad_canvas(flow2, grid)
 
     def chunk(origins):
-        starts = origins.tolist()
-        f1 = torch.stack([c1[r : r + th, c : c + tw] for r, c in starts])
-        f2 = torch.stack([c2[r : r + th, c : c + tw] for r, c in starts])
+        f1, f2 = halo_windows(c1, origins, grid), halo_windows(c2, origins, grid)
         return compose_flows_batched(f1, f2)[:, o : o + grid.tile_h, o : o + grid.tile_w]
 
     out = tile_map(chunk, (torch.from_numpy(tile_origins(grid)),), batch=_COMPOSE_BATCH)

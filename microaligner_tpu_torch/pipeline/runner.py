@@ -38,6 +38,7 @@ from microaligner_tpu_torch.io.tiff import MemmapWriter, TiffFile, read_tiff_pag
 from microaligner_tpu_torch.ops.affine_tiled import affine_warp_bands
 from microaligner_tpu_torch.ops.pad import calculate_padding_size, pad_to_shape, zero_pad
 from microaligner_tpu_torch.ops.warp import inverse_of
+from microaligner_tpu_torch.optflow.flow_calc import dense_banded
 from microaligner_tpu_torch.optflow.registrator import OptFlowRegistrator
 from microaligner_tpu_torch.optflow.warper import (
     TORCH_DTYPES,
@@ -95,21 +96,30 @@ def check_input_img_dims_match(img_paths: List[Path]) -> bool:
 
 def _apply_flow_plane(img: torch.Tensor, flow: torch.Tensor, grid: TileGrid,
                       dtype: torch.dtype, band_rows: Optional[int] = None) -> torch.Tensor:
-    """Banded warp of one (H, W) plane by the (H, W, 2) flow on the flow's
-    device, rounded half to even and clipped back to ``dtype`` (``cv.remap``
-    on integer images rounds) inside each band: one launch of K5's band
-    entry (``sample_band_multi``) a band, where the plane's dtype is
-    ``dtype`` (``warp_tiled_dtype``)."""
+    """Warp of one (H, W) plane by the (H, W, 2) flow on the flow's device,
+    rounded half to even and clipped back to ``dtype`` (``cv.remap`` on
+    integer images rounds), on the route ``MICROALIGNER_TPU_FLOW_DENSE``
+    names (``warp_tiled_dtype``): by default one launch of K5's band entry
+    (``sample_band_multi``) a band, where the plane's dtype is ``dtype``;
+    under ``0`` the per-tile warp, K1 a chunk of halo windows."""
     return warp_tiled_dtype(img, flow, grid, dtype, band_rows)
 
 
 def _apply_flow_planes(imgs: torch.Tensor, flow: torch.Tensor, grid: TileGrid,
                        dtype: torch.dtype, band_rows: Optional[int] = None) -> torch.Tensor:
-    """Banded warp of N (N, H, W) planes sharing one flow (the cycle's
-    channel/z stack — reference __main__.py:288-302), rounded to ``dtype``:
-    one K5 launch a band warps every plane (``warp_planes_tiled``).  The
-    result equals :func:`_apply_flow_plane` on each plane bit for bit."""
-    return warp_planes_tiled(imgs, flow, grid, dtype, band_rows)
+    """Warp of N (N, H, W) planes sharing one flow (the cycle's channel/z
+    stack — reference __main__.py:288-302), rounded to ``dtype``.  By
+    default one K5 launch a band warps every plane (``warp_planes_tiled``);
+    under ``MICROALIGNER_TPU_FLOW_DENSE=0`` each plane goes through
+    :func:`_apply_flow_plane` in turn, as the JAX package's default maps it
+    over the planes.  Either way the result equals :func:`_apply_flow_plane`
+    on each plane bit for bit."""
+    if dense_banded():
+        return warp_planes_tiled(imgs, flow, grid, dtype, band_rows)
+    out = torch.empty(imgs.shape, dtype=dtype, device=imgs.device)
+    for i in range(imgs.shape[0]):
+        out[i] = _apply_flow_plane(imgs[i], flow, grid, dtype, band_rows)
+    return out
 
 
 def save_param(out_dir: Path, tmat_per_cycle, padding_per_cycle, image_shape):

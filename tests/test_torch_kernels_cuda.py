@@ -21,6 +21,11 @@ held bit for bit to its plain version, at one plane and at N.  K6 is held bit
 for bit to its plain version and to K2's expansions (the same moments5
 device function), and K1's row window bit for bit to the plain version's.
 
+The per-tile route (``MICROALIGNER_TPU_FLOW_DENSE=0``) is held on the card
+too: K2-K4 at its chunk of 8 halo windows of 1200^2, its warp bit for bit
+and its fused flow and warp against the plain versions on the CPU, and a
+register on it that launches K1-K4 and never K5.
+
 K3 sums each tap with one fused multiply-add, which rounds once where the
 plain version's multiply and add round twice, so it is not bit-equal to its
 plain version: it is held to 1e-4 px of it, and against the plain version
@@ -432,3 +437,90 @@ def test_match_near_ties_on_card_equal_cpu(gen, dev):
     want_good, want_idx = match_descriptors(*args)
     assert torch.equal(good.cpu(), want_good) and torch.equal(idx.cpu(), want_idx)
     assert 0 < int(want_good.sum()) < n
+
+
+# -- the per-tile route (MICROALIGNER_TPU_FLOW_DENSE=0) ------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K2", "K3", "K4"])
+def test_k234_at_the_per_tile_shape(gen, dev, kernel):
+    """K2-K4 where the per-tile route launches them: a chunk of 8 halo
+    windows of 1200^2 (tile 1000, overlap 100), each against its plain
+    version with its bar; K3 at window 99 also against float64."""
+    a, b, coeffs = _k2_inputs(gen, dev, 8, 1200, 1200)
+    want = kernel_poly.poly_pair_m_plain(a, b, coeffs)
+    if kernel == "K2":
+        for g, wv in zip(kernel_poly.poly_pair_m(a, b, coeffs), want):
+            err, bound = _rel_err(g, wv)
+            assert err <= bound
+        return
+    r0, r1, m0 = want
+    del a, b
+    fx, fy = kernel_agg.smooth5_solve_plain(m0, 99)
+    if kernel == "K3":
+        got = kernel_agg.smooth5_solve(m0, 99)
+        exact = kernel_agg.smooth5_solve_plain(m0.double(), 99)
+        for g, p, e in zip(got, (fx, fy), exact):
+            torch.testing.assert_close(g, p, atol=1e-4, rtol=0)
+            kern_err, plain_err = (g.double() - e).abs(), (p.double() - e).abs()
+            assert float(kern_err.max()) <= min(float(plain_err.max()) + F64_SLACK_PX, F64_MAX_PX)
+            assert float(kern_err.mean()) <= min(float(plain_err.mean()) + F64_SLACK_PX, F64_MEAN_PX)
+        return
+    err, bound = _rel_err(kernel_matrices.update_matrices(r0, r1, fx, fy),
+                          kernel_matrices.update_matrices_plain(r0, r1, fx, fy))
+    assert err <= bound
+
+
+def _per_tile_counts():
+    return {"K1": kernel_sample.sample_displaced.launches, "K2": kernel_poly.poly_pair_m.launches,
+            "K3": kernel_agg.smooth5_solve.launches, "K4": kernel_matrices.update_matrices.launches,
+            "K5": kernel_sample.sample_displaced_multi.launches + kernel_sample.sample_band_multi.launches}
+
+
+@pytest.mark.cuda
+def test_per_tile_warp_on_card(gen, dev, monkeypatch):
+    """The per-tile warp (``_apply_flow_plane`` under ``FLOW_DENSE=0``): one
+    K1 launch a chunk of windows and no K5, bit for bit against the same
+    warp through the plain versions on the CPU."""
+    from microaligner_tpu_torch.optflow import warper
+
+    monkeypatch.setenv("MICROALIGNER_TPU_FLOW_DENSE", "0")
+    monkeypatch.setattr(warper, "_TILE_BATCH", 4)  # 9 windows: chunks of 4, 4, 1
+    img = torch.from_numpy(gen.integers(0, 65535, (260, 300)).astype(np.uint16))
+    flow = torch.from_numpy(((gen.random((260, 300, 2)) - 0.5) * 12).astype(np.float32))
+    grid = TileGrid.for_image((260, 300), 120, 20)
+    before = _per_tile_counts()
+    got = _apply_flow_plane(img.to(dev), flow.to(dev), grid, torch.uint16)
+    torch.cuda.synchronize()
+    after = _per_tile_counts()
+    assert after["K1"] - before["K1"] == 3 and after["K5"] == before["K5"]
+    assert got.dtype == torch.uint16 and torch.equal(got.cpu(), _apply_flow_plane(img, flow, grid, torch.uint16))
+
+
+@pytest.mark.cuda
+def test_per_tile_register_on_card(gen, dev, monkeypatch):
+    """The fused per-tile flow and warp on the card against the plain
+    versions on the CPU (the flow within phase 3's bars, the warp within
+    1 LSB where the flow moved), and a register under ``FLOW_DENSE=0``
+    launches K1-K4 and never K5."""
+    from microaligner_tpu_torch.optflow.flow_calc import calc_flow_and_warp_tiled
+    from microaligner_tpu_torch.optflow.registrator import OptFlowRegistrator
+
+    monkeypatch.setenv("MICROALIGNER_TPU_FLOW_DENSE", "0")
+    mov, ref = (x[0].round().to(torch.uint8) for x in _smooth_pair(gen, dev, 1, 420, 460))
+    grid = TileGrid.for_image((420, 460), 150, 50)
+    flow, warped = calc_flow_and_warp_tiled(ref, mov, mov, grid, 49, 2, torch.uint8)
+    cflow, cwarped = calc_flow_and_warp_tiled(ref.cpu(), mov.cpu(), mov.cpu(), grid, 49, 2, torch.uint8)
+    err = (flow.cpu() - cflow).abs()
+    assert float(err.mean()) < 1e-4 and float(err.max()) < 1e-2
+    diff = (warped.cpu().to(torch.int32) - cwarped.to(torch.int32)).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 1e-3
+    reg = OptFlowRegistrator(device=dev)
+    reg.num_pyr_lvl, reg.num_iterations, reg.tile_size, reg.overlap, reg.use_full_res_img = 1, 2, 150, 50, True
+    reg.ref_img, reg.mov_img = ref, mov
+    before = _per_tile_counts()
+    out = reg.register_device()
+    torch.cuda.synchronize()
+    after = _per_tile_counts()
+    assert out.device.type == "cuda" and out.shape == (420, 460, 2)
+    assert all(after[k] > before[k] for k in ("K1", "K2", "K3", "K4")) and after["K5"] == before["K5"]
