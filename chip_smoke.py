@@ -73,7 +73,7 @@ Run it from the repository root; it needs one card and takes no arguments.  Phas
    unregistered MSE;
 7. FeatureReg: ``FeatureRegistrator.register`` on config 1's pair of the
    JAX package's bench (4096^2, ``t_true`` of ``bench.py::bench_feature``),
-   one texture, on the card and on the CPU (the corners within 1e-3
+   two textures, each on the card and on the CPU (the corners within 1e-3
    px of each other and within 0.5 px of the truth), then on a 20480^2
    pair with the stage timers on (each level's find, match, RANSAC and
    gate, summed over the iterations);
@@ -1449,7 +1449,7 @@ def inverse2x3(fwd) -> np.ndarray:
     return np.linalg.inv(np.vstack([np.asarray(fwd, np.float64), [0.0, 0.0, 1.0]]))[:2]
 
 
-def feature_pairs(dev, rng, counters: "Counters", sizes=(4096, 20480), cpu_pairs=1) -> dict:
+def feature_pairs(dev, rng, counters: "Counters", sizes=(4096, 20480), cpu_pairs=2) -> dict:
     """Config 1 of the JAX package's bench (``bench.py::bench_feature``):
     ``FeatureRegistrator`` (3 levels [8, 4, 2], 3 iterations, tile 1000,
     DoG) on 4096^2 u8 pairs moved by ``t_true``, ``cpu_pairs`` textures,
@@ -1858,7 +1858,8 @@ def routes_drivers(dev, rng, counters: "Counters", n=4096) -> dict:
     """The three OptFlow drivers on one 4096^2 u8 pair on the default
     route: whole, ``WHOLE_REGISTER=0`` and ``CARRY_LEVEL=0`` give the same
     accept/reject and flows within 1e-4 px of the whole driver's (the JAX
-    package's bar for whole against per-level)."""
+    package's bar for whole against per-level; in the port both values of
+    ``WHOLE_REGISTER`` run the same carry loop)."""
     from microaligner_tpu_torch.ops.filters import minmax_normalize_u8
     from microaligner_tpu_torch.optflow.registrator import OptFlowRegistrator
 

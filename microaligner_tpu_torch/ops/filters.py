@@ -302,12 +302,16 @@ def pyr_up(img: torch.Tensor, dstsize: tuple[int, int]) -> torch.Tensor:
     OpenCV's borders differ per edge: REFLECT_101 at the top and left,
     REFLECT at the bottom and REPLICATE at the right.  Only the second
     out-of-range tap tells them apart, which odd ``dstsize`` exposes.
+    Raises ``ValueError`` where ``cv.pyrUp`` fails its assertion: each side
+    of ``dstsize`` must be twice the input's, or one more or less when odd.
     """
     dh, dw = dstsize
+    h, w = img.shape[:2]
+    if abs(dh - 2 * h) != dh % 2 or abs(dw - 2 * w) != dw % 2:
+        raise ValueError(f"pyr_up: dstsize {(dh, dw)} is not twice {(h, w)} (+-1 when odd)")
     x = img.to(torch.float32)
     squeeze = x.dim() == 2
     x = x.unsqueeze(0) if squeeze else x.permute(2, 0, 1)
-    _, h, w = x.shape
     dev = x.device
     rows = torch.cat([torch.tensor([2, 1], device=dev).clamp(max=h - 1),
                       torch.arange(h, device=dev),

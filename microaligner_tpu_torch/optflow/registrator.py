@@ -6,26 +6,25 @@ accumulated flow, optional DoG, the banded or per-tile (or whole-image)
 Farneback fused with the post-warp, the NMI gate, the tile-wise flow
 composition and the pyrUp to the next level.
 
-``register_device`` takes one of the JAX package's three drivers, chosen
-by its variables on each call:
+``register_device`` takes one of the JAX package's drivers, chosen by its
+variables on each call:
 
 * ``MICROALIGNER_TPU_CARRY_LEVEL=0``: the stepwise host loop
   (``_register_stepwise``): each level's gate scores are read back and the
   host picks the next flow (accept: compose and upscale; reject: keep,
   upscale or zero);
-* else ``MICROALIGNER_TPU_WHOLE_REGISTER`` other than ``1``: the per-level
-  carry loop (``_register_per_level``), one ``_fused_level_carry`` a level
-  timed on its own;
-* else (the default) the whole registration (``_register_whole``).
+* else the carry loop (``_register_whole``), one ``_fused_level_carry`` a
+  level.  The JAX package's ``MICROALIGNER_TPU_WHOLE_REGISTER`` chooses
+  between one compiled program for the whole registration (``1``, its
+  default) and one a level; eager PyTorch launches level by level either
+  way, so both of its values run this same loop.
 
-In the last two the accept/reject decision of each level is a 0-d device
+In the carry loop the accept/reject decision of each level is a 0-d device
 tensor that selects the next flow with ``torch.where``, so nothing is read
 back to the host until the end, where all gate scores are fetched at once
-for the log.  In eager PyTorch those two make the same launches; the JAX
-package's difference is one compiled program against one a level.  Every
-level goes through ``MICROALIGNER_TPU_FLOW_DENSE``'s route for its flow,
-its pre-warp and its post-warp, under all three drivers.  The JAX package's
-quirks are kept: the last level is upscaled without scaling its values
+for the log.  Every level goes through ``MICROALIGNER_TPU_FLOW_DENSE``'s
+route for its flow, its pre-warp and its post-warp, under both drivers.
+The JAX package's quirks are kept: the last level is upscaled without scaling its values
 (one pyrUp from the original flow, ``_upscale_flow_to_full_res``),
 ``replicate_reject_upscale_bug`` doubles a rejected mid level's flow
 twice, and a single level at (almost) full size keeps its raw flow.
@@ -43,8 +42,8 @@ import torch
 from microaligner_tpu_torch.ops.filters import dog_traced, pyr_down, pyr_up
 from microaligner_tpu_torch.ops.mutual_info import mi_tiled_traced
 from microaligner_tpu_torch.ops.warp import compose_flows
-from microaligner_tpu_torch.optflow.farneback import _farneback_core_parts, farneback
-from microaligner_tpu_torch.optflow.flow_calc import calc_flow_and_warp_tiled, calc_flow_tiled
+from microaligner_tpu_torch.optflow.farneback import _farneback_core_parts
+from microaligner_tpu_torch.optflow.flow_calc import calc_flow_and_warp_tiled
 from microaligner_tpu_torch.optflow.warper import (
     compose_flows_tiled,
     torch_dtype_of,
@@ -155,14 +154,18 @@ def _build_pyramid(arr: torch.Tensor, num_pyr_lvl: int, use_full_res: bool):
     return pyramid, factors
 
 
-def _carry_levels(ref_pyr, mov_pyr, factors, full_shape, tile_size: int, overlap: int,
-                  win_size: int, num_iter: int, use_dog: bool, use_full_res: bool,
-                  reject_mult: int, band_rows: Optional[int]):
-    """``_fused_level_carry`` over the levels, coarsest first.  Returns
-    ``(flow (H, W, 2), [(mi_after, mi_before) per level as 0-d device
-    tensors])``."""
-    dtype = mov_pyr[-1].dtype
+def _register_whole(ref_img: torch.Tensor, mov_img: torch.Tensor, num_pyr_lvl: int,
+                    use_full_res: bool, tile_size: int, overlap: int, win_size: int,
+                    num_iter: int, use_dog: bool, reject_mult: int,
+                    band_rows: Optional[int] = None):
+    """The whole multi-level registration: ``_fused_level_carry`` over the
+    levels, coarsest first.  Returns ``(flow (H, W, 2), [(mi_after,
+    mi_before) per level as 0-d device tensors], factors)``."""
+    ref_pyr, factors = _build_pyramid(ref_img, num_pyr_lvl, use_full_res)
+    mov_pyr, _ = _build_pyramid(mov_img, num_pyr_lvl, use_full_res)
+    dtype = mov_img.dtype
     num_lvl = len(factors)
+    full_shape = tuple(int(s) for s in mov_img.shape)
     m_flow = None
     scores = []
     for lvl in range(num_lvl):
@@ -171,27 +174,13 @@ def _carry_levels(ref_pyr, mov_pyr, factors, full_shape, tile_size: int, overlap
         is_first = lvl == 0
         is_last = lvl == num_lvl - 1
         next_shape = full_shape if is_last else tuple(int(s) for s in mov_pyr[lvl + 1].shape)
-        with stage_timer(f"lvl{factors[lvl]} fused level+carry", mov_pyr[lvl].device):
+        with stage_timer(f"lvl{factors[lvl]} fused level+carry", ref_img.device):
             m_flow, mi_after, mi_before = _fused_level_carry(
                 ref_pyr[lvl], mov_pyr[lvl], m_flow, grid, win_size, num_iter, use_dog,
                 tile_size, not is_first, max(shape) / tile_size < 2, dtype, band_rows,
                 is_first, is_last, next_shape, full_shape, use_full_res, reject_mult,
             )
         scores.append((mi_after, mi_before))
-    return m_flow, scores
-
-
-def _register_whole(ref_img: torch.Tensor, mov_img: torch.Tensor, num_pyr_lvl: int,
-                    use_full_res: bool, tile_size: int, overlap: int, win_size: int,
-                    num_iter: int, use_dog: bool, reject_mult: int,
-                    band_rows: Optional[int] = None):
-    """The whole multi-level registration.  Returns ``(flow (H, W, 2),
-    [(mi_after, mi_before) per level as 0-d device tensors], factors)``."""
-    ref_pyr, factors = _build_pyramid(ref_img, num_pyr_lvl, use_full_res)
-    mov_pyr, _ = _build_pyramid(mov_img, num_pyr_lvl, use_full_res)
-    m_flow, scores = _carry_levels(ref_pyr, mov_pyr, factors, tuple(int(s) for s in mov_img.shape),
-                                   tile_size, overlap, win_size, num_iter, use_dog, use_full_res,
-                                   reject_mult, band_rows)
     return m_flow, scores, factors
 
 
@@ -262,8 +251,8 @@ class OptFlowRegistrator:
     def register_device(self) -> torch.Tensor:
         """:meth:`register` but the flow stays on ``device``.  The per-level
         gate scores land in ``last_scores`` as ``(factor, mi_after,
-        mi_before)``: read back once, at the end, on the whole and
-        per-level drivers, level by level on the stepwise one."""
+        mi_before)``: read back once, at the end, on the carry loop, level
+        by level on the stepwise one."""
         check_img_is_provided(self._ref_img, "ref")
         check_img_is_provided(self._mov_img, "mov")
         check_img_dims_match(self._ref_img, self._mov_img)
@@ -271,8 +260,6 @@ class OptFlowRegistrator:
         torch_dtype_of(self._mov_img)  # raises for dtypes the warp cannot keep
         if os.environ.get("MICROALIGNER_TPU_CARRY_LEVEL", "1") == "0":
             return self._register_stepwise()
-        if os.environ.get("MICROALIGNER_TPU_WHOLE_REGISTER", "1") != "1":
-            return self._register_per_level()
         ref, mov = self._on_device(self._ref_img), self._on_device(self._mov_img)
         with stage_timer("whole register", ref.device):
             m_flow, scores, factors = _register_whole(
@@ -306,20 +293,6 @@ class OptFlowRegistrator:
                 "(min dim 100 px after downscale) and use_full_res_img is "
                 "False; enable use_full_res_img or reduce num_pyr_lvl"
             )
-
-    def _register_per_level(self) -> torch.Tensor:
-        """The per-level carry loop (``MICROALIGNER_TPU_WHOLE_REGISTER=0``):
-        one ``_fused_level_carry`` a level, each timed on its own, the gate
-        scores read back at the end."""
-        ref_pyr, factors = self._generate_img_pyr(self._on_device(self._ref_img))
-        mov_pyr, _ = self._generate_img_pyr(self._on_device(self._mov_img))
-        m_flow, scores = _carry_levels(
-            ref_pyr, mov_pyr, factors, tuple(int(s) for s in self._mov_img.shape), self.tile_size,
-            self.overlap, self._win_size(), self.num_iterations, self.use_dog,
-            self.use_full_res_img, self._reject_mult(), self.band_rows)
-        self._fetch_scores(factors, scores)
-        self._log_scores()
-        return m_flow
 
     def _register_stepwise(self) -> torch.Tensor:
         """The host-driven accept/reject loop (``MICROALIGNER_TPU_CARRY_LEVEL=0``):
@@ -373,15 +346,6 @@ class OptFlowRegistrator:
         return m_flow
 
     # -- helpers -----------------------------------------------------------
-
-    def _calc_flow_dev(self, ref_img: torch.Tensor, mov_img: torch.Tensor, win_size: int) -> torch.Tensor:
-        """``TileFlowCalc.calc_flow`` on the device (reference
-        flow_calc.py:59-84): the whole image below two tiles, else
-        ``MICROALIGNER_TPU_FLOW_DENSE``'s route."""
-        if max(ref_img.shape) / self.tile_size < 2:
-            return farneback(mov_img, ref_img, win_size=win_size, num_iter=self.num_iterations)
-        grid = TileGrid.for_image(tuple(ref_img.shape), self.tile_size, self.overlap)
-        return calc_flow_tiled(ref_img, mov_img, grid, win_size, self.num_iterations, self.band_rows)
 
     @staticmethod
     def _pyr_up_dev(flow: torch.Tensor, dst_shape) -> torch.Tensor:

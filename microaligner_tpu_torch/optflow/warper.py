@@ -34,7 +34,7 @@ from microaligner_tpu_torch.ops.warp import (
     warp_band,
     warp_with_flow_parts_batched,
 )
-from microaligner_tpu_torch.optflow.flow_calc import band_rows_for, dense_banded, halo_windows
+from microaligner_tpu_torch.optflow.flow_calc import _interior, band_rows_for, dense_banded, halo_windows
 from microaligner_tpu_torch.parallel import tile_map
 from microaligner_tpu_torch.tiles import (
     TileGrid,
@@ -92,7 +92,7 @@ def _warp_tiled(image: torch.Tensor, flow: torch.Tensor, grid: TileGrid,
     flow = flow.to(torch.float32)
     fx_int = split_interiors(flow[..., 0], grid)
     fy_int = split_interiors(flow[..., 1], grid)
-    sl = (slice(None), slice(o, o + grid.tile_h), slice(o, o + grid.tile_w))
+    sl = _interior(grid)
 
     def chunk(origins, fxt, fyt):
         wins = halo_windows(canvas, origins, grid).to(torch.float32)

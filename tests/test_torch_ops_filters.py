@@ -142,6 +142,19 @@ def test_pyr_up(rng, src_shape, dst_shape):
     np.testing.assert_allclose(got, cv.pyrUp(img, dstsize=dst_shape[::-1]), atol=1e-3)
 
 
+@pytest.mark.parametrize("dst_shape", [(200, 240), (102, 120), (100, 118), (98, 120), (100, 123)])
+def test_pyr_up_refuses_what_cv_refuses(rng, dst_shape):
+    """A ``dstsize`` off twice the input (+-1 when odd) fails ``cv.pyrUp``'s
+    assertion; the port raises instead of returning another shape."""
+    img = (rng.random((50, 60)) * 255).astype(np.float32)
+    with pytest.raises(cv.error):
+        cv.pyrUp(img, dstsize=dst_shape[::-1])
+    with pytest.raises(ValueError, match="dstsize"):
+        tf.pyr_up(torch.from_numpy(img), dst_shape)
+    with pytest.raises(ValueError, match="dstsize"):
+        tf.pyr_up(torch.from_numpy(np.stack([img, img], -1)), dst_shape)
+
+
 def test_pyr_up_flow_and_u8(rng):
     flow = (rng.random((40, 50, 2)) * 6 - 3).astype(np.float32)
     want = np.asarray(jf.pyr_up(jnp.asarray(flow), (81, 99)))

@@ -4,7 +4,8 @@ package's same routes, on the same numpy inputs:
 * the strict-parity per-tile route (``MICROALIGNER_TPU_FLOW_DENSE=0``): the
   per-tile flow, its fused post-warp, the per-tile warp, the per-plane and
   z-stack applies, and the chunk size ``MICROALIGNER_TPU_FLOW_TILE_BATCH``;
-* the per-level carry driver (``MICROALIGNER_TPU_WHOLE_REGISTER=0``) and the
+* ``MICROALIGNER_TPU_WHOLE_REGISTER=0`` (the JAX package's per-level carry
+  driver; in the port the same carry loop as its default) and the
   stepwise host driver (``MICROALIGNER_TPU_CARRY_LEVEL=0``), with a rejected
   middle level, a single-level pyramid, and on the per-tile route;
 * the port's registrator against ``scripts/reference_recon.py`` (cv2 and
@@ -361,9 +362,11 @@ def test_driver_matches_jax_and_whole(driver, case, monkeypatch, whole_runs):
 
 
 def test_driver_helpers_match_jax():
-    """``_upscale_flow_to_full_res`` (a pyrUp of the flow, values kept),
-    ``_merge_list_of_flows`` and ``_calc_flow_dev`` against the JAX
-    package's on the same inputs."""
+    """``_upscale_flow_to_full_res`` (a pyrUp of the flow, values kept) and
+    ``_merge_list_of_flows`` against the JAX package's on the same inputs.
+    At factor 4 the reference's quirk pyrUps the original flow straight to
+    the full size, which ``cv.pyrUp`` refuses: the port raises, where the
+    JAX package returns a flow of another shape (212 rows for 420)."""
     ref, mov = _reg_pair()
     jr, tr = JReg(), port.OptFlowRegistrator(device="cpu")
     for reg in (jr, tr):
@@ -375,13 +378,12 @@ def test_driver_helpers_match_jax():
     got = tr._upscale_flow_to_full_res(torch.from_numpy(small), 2).numpy()
     assert got.shape == (420, 460, 2)
     np.testing.assert_allclose(got, want, atol=1e-5)
+    with pytest.raises(ValueError, match="dstsize"):
+        tr._upscale_flow_to_full_res(torch.from_numpy(_smooth_flow(105, 115)), 4)
     f1, f2 = _smooth_flow(420, 460), _smooth_flow(420, 460, amp=1.0)[::-1].copy()
     np.testing.assert_allclose(
         tr._merge_list_of_flows([torch.from_numpy(f1), torch.from_numpy(f2)]).numpy(),
         np.asarray(jr._merge_list_of_flows([jnp.asarray(f1), jnp.asarray(f2)])), atol=1e-4)
-    jflow = np.asarray(jr._calc_flow_dev(jnp.asarray(ref), jnp.asarray(mov), 49))
-    err = np.abs(tr._calc_flow_dev(torch.from_numpy(ref), torch.from_numpy(mov), 49).numpy() - jflow)
-    assert err.mean() < 1e-4 and err.max() < 1e-2, (err.mean(), err.max())
 
 
 @pytest.mark.parametrize("dense", ["1", "0"])
