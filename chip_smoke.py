@@ -3,8 +3,9 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cards   # on a machine with two or more cards: phase 11 across them
 
-Run it from the repository root; it needs one card and takes no arguments.  Phases, each printing its own lines:
+Run it from the repository root; with no arguments it needs one card.  Phases, each printing its own lines:
 
 1. build: compile ``microaligner_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
    (one nvcc process a source, all at once); K1's registers, the two K3
@@ -103,9 +104,26 @@ Run it from the repository root; it needs one card and takes no arguments.  Phas
    the per-tile feature path (``FEATURE_DENSE=0``: the whole level's
    keypoints), each within 0.5 px of the truth, then ``FEATURE_DENSE=0``
    once at ``FEATURE_PER_TILE_N``^2, timed.  Phase 2 also holds K2-K4 at
-   the per-tile route's chunk, 8 halo windows of 1200^2, and times them.
+   the per-tile route's chunk, 8 halo windows of 1200^2, and times them;
+11. the tile mesh (``mesh_phase``; one card, so a mesh of several entries
+   repeats ``cuda:0`` and its shards run one after the other): (a) the
+   sharded register step (``parallel/step.py``) at config 2 of the JAX
+   package's bench (4096^2, tile 1000, overlap 100, window 99, 3
+   iterations: 25 halo windows) on the meshes (cuda:0,) x 1, 2 and 4, the
+   flow, warp and NMI histogram bit-equal across them and the histogram at
+   exactly 4096^2, each timed with CUDA events; (b) that step at 1024^2,
+   tile 500, on the card against a CPU mesh of 2 (phase 3's bars); (c) a
+   20480^2 ``register_device`` on both ``FLOW_DENSE`` routes,
+   ``Warper.warp_device`` and ``affine_warp_bands`` of a u16 plane, and
+   FeatureReg's banded and per-tile ``find_features`` at 4096^2, each on
+   (cuda:0,) x 2 against (cuda:0,), in turns, bit-equal, with both meshes'
+   peak device memory; (d) a 1-rank NCCL group formed by
+   ``init_distributed_from_env`` running ``tile_map`` and an
+   ``all_reduce``, then 2 gloo ranks on the one card running (a)'s step,
+   each rank's outputs bit-equal to the one-process result (every group a
+   subprocess, killed if it outlasts its timeout).
 
-Every path of phases 4-10 runs with the kernels' launch counters set to 0
+Every path of phases 4-11 runs with the kernels' launch counters set to 0
 just before it and read just after: each kernel of the path must have
 launched and no plain version may have run.  The last lines are the card's
 name and power limit as nvidia-smi prints them, a JSON object with one entry
@@ -2019,6 +2037,403 @@ def alternate_routes(dev, rng, counters: "Counters", stack_planes) -> dict:
             "routes_feature": routes_feature(dev, rng, counters)}
 
 
+# -- phase 11 --------------------------------------------------------------
+
+# the sharded register step at config 2 of the JAX package's bench
+# (``bench.py::bench_optflow_step``): 4096^2, tile 1000, overlap 100, window 99, 3 iterations
+STEP_N, STEP_TILE, STEP_OVERLAP, STEP_WIN, STEP_ITERS = 4096, 1000, 100, 99, 3
+MESH_WORKER_TIMEOUT_S = 240
+
+# one rank of phase 11's process groups, on its first visible card: ``collectives`` runs
+# tile_map (gathered across the ranks) and an all_reduce; ``step`` runs the sharded step on
+# the pair in ``pair.pt`` and prints a digest of its outputs and its kernel launches
+MESH_WORKER = r'''
+import hashlib, json, os, sys
+mode, backend, pid, nproc, coord, root, work = sys.argv[1:8]
+sys.path.insert(0, root)
+os.environ.update(MICROALIGNER_TPU_DIST="1", MICROALIGNER_TPU_DIST_COORD=coord,
+                  MICROALIGNER_TPU_DIST_NPROC=nproc, MICROALIGNER_TPU_DIST_PID=pid)
+import torch
+import torch.distributed as dist
+from microaligner_tpu_torch.ops import kernel_agg, kernel_matrices, kernel_poly, kernel_sample as ks
+from microaligner_tpu_torch.parallel import get_tile_mesh, init_distributed_from_env, tile_map
+from microaligner_tpu_torch.parallel.step import make_sharded_register_step
+from microaligner_tpu_torch.tiles import TileGrid
+
+dev = torch.device("cuda", 0)
+if not init_distributed_from_env(backend=backend, timeout_s=120):
+    raise SystemExit("MICROALIGNER_TPU_DIST is not 1")
+mesh = get_tile_mesh([dev])
+out = {"mode": mode, "backend": dist.get_backend(), "rank": mesh.rank, "world": mesh.world_size,
+       "shards": mesh.size}
+if mode == "collectives":
+    tiles = torch.arange(11 * 64 * 64, device=dev, dtype=torch.float32).reshape(11, 64, 64)
+    got = tile_map(lambda t: (t * 2.0 + 1.0, t.to(torch.uint16)), (tiles,), batch=4, mesh=mesh)
+    out["tile_map_ok"] = bool(torch.equal(got[0], tiles * 2.0 + 1.0) and torch.equal(got[1], tiles.to(torch.uint16)))
+    total = tiles.sum((1, 2))
+    dist.all_reduce(total, op=dist.ReduceOp.SUM)
+    out["all_reduce_ok"] = bool(torch.equal(total, int(nproc) * tiles.sum((1, 2))))
+else:
+    pair = torch.load(os.path.join(work, "pair.pt"))
+    n, tile, overlap, win, iters = pair["params"]
+    step = make_sharded_register_step(mesh, TileGrid.for_image((n, n), tile, overlap), win, iters)
+    wrappers = {"K1": ks.sample_displaced, "K2": kernel_poly.poly_pair_m, "K3": kernel_agg.smooth5_solve,
+                "K4": kernel_matrices.update_matrices}
+    plains = (ks.sample_displaced_plain, kernel_poly.poly_pair_m_plain, kernel_agg.smooth5_solve_plain,
+              kernel_matrices.update_matrices_plain)
+    for fn in (*wrappers.values(), *plains):
+        setattr(fn, "launches" if hasattr(fn, "launches") else "calls", 0)
+    warped, flow, hist = step(pair["ref"].to(dev), pair["mov"].to(dev))
+    torch.cuda.synchronize()
+    out["launches"] = {k: fn.launches for k, fn in wrappers.items()}
+    out["plain_calls"] = sum(fn.calls for fn in plains)
+    out["digest"] = {name: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+                     for name, t in (("warped", warped), ("flow", flow), ("hist", hist))}
+    out["hist_sum"] = int(hist.sum())
+dist.destroy_process_group()
+print("MESH_WORKER " + json.dumps(out), flush=True)
+'''
+
+
+def step_pair(dev, rng, n):
+    """A float32 0-255 pair moved by ``displacement()``, on ``dev``."""
+    base = texture(rng, n, n, dev)
+    dx, dy = displacement(n, n, 3.0, 0.4, dev, wavelength=700.0)
+    return base * 255.0, remap_rows(base, dx, dy) * 255.0
+
+
+def digests(outs) -> dict:
+    import hashlib
+
+    return {name: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+            for name, t in zip(("warped", "flow", "hist"), outs)}
+
+
+def mesh_label(devices) -> str:
+    devices = tuple(devices)
+    if len(set(devices)) == 1:
+        return f"({devices[0]},) x {len(devices)}"
+    return "(" + ", ".join(map(str, devices)) + ")"
+
+
+def mesh_step(dev, rng, counters: "Counters", meshes=None) -> dict:
+    """(a) the sharded step at config 2's size on each of ``meshes``, by
+    default (cuda:0,) x 1, 2 and 4 (25 halo windows: the 2- and 4-entry
+    meshes pad the axis): every mesh's flow, warp and histogram bit-equal
+    to the first mesh's, the histogram at exactly 4096^2, K1-K4 launched
+    and no plain version; each timed with CUDA events (mean of 3 after a
+    warm-up)."""
+    from microaligner_tpu_torch.parallel import get_tile_mesh
+    from microaligner_tpu_torch.parallel.step import make_sharded_register_step
+    from microaligner_tpu_torch.tiles import TileGrid
+
+    n = STEP_N
+    meshes = meshes or [(dev,) * k for k in (1, 2, 4)]
+    ref, mov = step_pair(dev, rng, n)
+    grid = TileGrid.for_image((n, n), STEP_TILE, STEP_OVERLAP)
+    res, launches, first = {"pair": (ref, mov)}, {}, None
+    for devices in meshes:
+        label = mesh_label(devices)
+        step = make_sharded_register_step(get_tile_mesh(devices), grid, STEP_WIN, STEP_ITERS)
+        torch.cuda.synchronize()
+        for d in set(devices):
+            torch.cuda.reset_peak_memory_stats(d)
+        counters.reset()
+        outs = step(ref, mov)
+        torch.cuda.synchronize()
+        got = counters.read(f"mesh step {label}", ("K1", "K2", "K3", "K4"))
+        launches = {key: launches.get(key, 0) + v for key, v in got.items()}
+        peak = max(torch.cuda.max_memory_allocated(d) for d in set(devices)) / 2**30
+        ms = cuda_ms(lambda: step(ref, mov), 3)
+        warped, flow, hist = outs
+        require(warped.shape == (n, n) and flow.shape == (n, n, 2) and bool(torch.isfinite(flow).all()),
+                f"mesh step {label}: outputs {tuple(warped.shape)}, {tuple(flow.shape)} or a non-finite flow")
+        require(int(hist.sum()) == n * n, f"mesh step {label}: the histogram sums to {int(hist.sum())}, not {n * n}")
+        if first is None:
+            first = outs
+        same = all(torch.equal(a, b.to(a.device)) for a, b in zip(first, outs))
+        log(f"[mesh] step {n}^2, tile {STEP_TILE}, window {STEP_WIN}, {STEP_ITERS} iterations, mesh {label}: "
+            f"{ms:.3f} ms, peak device memory {peak:.2f} GiB; histogram sum {int(hist.sum())}; bit-equal to the "
+            f"first mesh's: {same}")
+        require(same, f"mesh step {label}: outputs differ from the first mesh's")
+        res[label] = dict(ms=ms, peak_gib=peak, launches=got)
+    res["digest"] = digests(first)
+    res["launches"] = launches
+    return res
+
+
+def mesh_step_parity(dev, rng, counters: "Counters", n=1024, tile=500) -> dict:
+    """(b) the step at 1024^2, tile 500 (window 51, 3 iterations) on the card
+    against a CPU mesh of 2 running the plain versions: phase 3's bars
+    (flow mean < 1e-4 px, max < 1e-2 px), both histograms at exactly n^2."""
+    from microaligner_tpu_torch.parallel import get_tile_mesh
+    from microaligner_tpu_torch.parallel.step import make_sharded_register_step
+    from microaligner_tpu_torch.tiles import TileGrid
+
+    ref, mov = step_pair(dev, rng, n)
+    grid = TileGrid.for_image((n, n), tile, 100)
+    counters.reset()
+    card = make_sharded_register_step(get_tile_mesh([dev]), grid, 51, 3)(ref, mov)
+    torch.cuda.synchronize()
+    launches = counters.read("mesh step parity", ("K1", "K2", "K3", "K4"))
+    t0 = time.perf_counter()
+    cpu = make_sharded_register_step(get_tile_mesh(["cpu"] * 2), grid, 51, 3)(ref.cpu(), mov.cpu())
+    cpu_s = time.perf_counter() - t0
+    err = (card[1].cpu() - cpu[1]).abs()
+    mean, mx = float(err.mean()), float(err.max())
+    wdiff = float((card[0].cpu() - cpu[0]).abs().max())
+    log(f"[mesh] step {n}^2, tile {tile}: card (cuda:0,) against a CPU mesh of 2 ({cpu_s:.1f} s): flow diff mean "
+        f"{mean:.3e} max {mx:.3e} px, warped max diff {wdiff:.3e}; histogram sums {int(card[2].sum())}, "
+        f"{int(cpu[2].sum())}")
+    require(mean < 1e-4 and mx < 1e-2, f"mesh step parity: flow diff mean {mean} max {mx}")
+    require(int(card[2].sum()) == n * n == int(cpu[2].sum()), "mesh step parity: a histogram is not n^2")
+    return dict(flow_diff_mean=mean, flow_diff_max=mx, warped_diff_max=wdiff, cpu_s=cpu_s, launches=launches)
+
+
+def mesh_engines(dev, rng, counters: "Counters", other=None, n=20480, n_feat=4096, tile=1000,
+                 overlap=100) -> dict:
+    """(c) the engines at full width on the mesh ``other``, by default
+    (cuda:0,) x 2, against (cuda:0,): a
+    20480^2 ``register_device`` on both ``FLOW_DENSE`` routes,
+    ``Warper.warp_device`` of a u16 plane and ``affine_warp_bands`` of it,
+    then FeatureReg's banded and per-tile ``find_features`` at 4096^2.
+    Each result bit-equal across the meshes; each case runs in turns (one,
+    other, other, one), and each mesh's first run counts its launches from 0
+    (K1-K4, and K5 on the banded route; no plain version) and its peak
+    device memory."""
+    from microaligner_tpu_torch.features.tile_features import find_features
+    from microaligner_tpu_torch.ops.affine_tiled import affine_warp_bands
+    from microaligner_tpu_torch.ops.filters import minmax_normalize_u8
+    from microaligner_tpu_torch.optflow.registrator import OptFlowRegistrator
+    from microaligner_tpu_torch.optflow.warper import Warper
+    from microaligner_tpu_torch.parallel import use_tile_mesh
+
+    t0 = time.perf_counter()
+    base = texture(rng, n, n, dev)
+    dx, dy = displacement(n, n, 3.0, 0.3, dev, wavelength=2000.0)
+    ref = minmax_normalize_u8(base)
+    mov_f = remap_rows(base, dx, dy)
+    mov = minmax_normalize_u8(mov_f)
+    plane = torch.clamp(mov_f * 60000 + 1000, 0, 65535).round().to(torch.uint16)
+    del base, mov_f, dx, dy
+    feat = minmax_normalize_u8(texture(rng, n_feat, n_feat, dev))
+    torch.cuda.synchronize()
+    log(f"[mesh] {n}^2 pair, u16 plane and {n_feat}^2 feature image made in {time.perf_counter() - t0:.2f} s")
+
+    def register():
+        reg = OptFlowRegistrator(device=dev)
+        reg.num_pyr_lvl, reg.num_iterations, reg.tile_size, reg.overlap = 3, 3, tile, overlap
+        reg.use_full_res_img, reg.use_dog = True, False
+        reg.ref_img, reg.mov_img = ref, mov
+        return reg.register_device()
+
+    def warp(flow):
+        w = Warper(device=dev)
+        w.tile_size, w.overlap = tile, overlap
+        w.image, w.flow = plane, flow
+        return w.warp_device()
+
+    inv = np.array([[0.99998, -0.0052, 31.7], [0.0052, 0.99998, -22.4]])
+    flows = {}
+    cases = [("register banded", {}, register, ("K1", "K2", "K3", "K4", "K5")),
+             ("register per-tile", {"FLOW_DENSE": "0"}, register, ("K1", "K2", "K3", "K4")),
+             ("Warper.warp_device", {}, lambda: warp(flows["register banded"]), ("K5",)),
+             ("affine_warp_bands", {}, lambda: affine_warp_bands(plane, inv, n, n), ("K1",)),
+             ("find_features banded", {"FEATURE_DENSE_MAX_MPIX": "0"},
+              lambda: vars(find_features(feat, tile)), ()),
+             ("find_features per-tile", {"FEATURE_DENSE": "0"}, lambda: vars(find_features(feat, tile)), ())]
+    meshes = {"one": (dev,), "other": tuple(other or (dev,) * 2)}
+    names = {k: mesh_label(v) for k, v in meshes.items()}
+    res, launches = {}, {}
+    for label, variables, fn, kernels in cases:
+        outs, secs = {}, {"one": [], "other": []}
+        for k in ("one", "other", "other", "one"):  # in turns; each mesh's first run counts launches and memory
+            first = k not in outs
+            with routes(**variables), use_tile_mesh(meshes[k]):
+                for d in set(meshes[k]):
+                    torch.cuda.empty_cache()
+                    torch.cuda.synchronize(d)
+                    torch.cuda.reset_peak_memory_stats(d)
+                base_bytes = {d: torch.cuda.memory_allocated(d) for d in set(meshes[k])}
+                if first:
+                    counters.reset()
+                t0 = time.perf_counter()
+                out = fn()
+                for d in set(meshes[k]):
+                    torch.cuda.synchronize(d)
+                secs[k].append(time.perf_counter() - t0)
+                if first:
+                    got = counters.read(f"mesh {label} {names[k]}", kernels)
+            if not first:
+                del out
+                continue
+            outs[k] = out
+            peak = max(torch.cuda.max_memory_allocated(d) - base_bytes[d] for d in set(meshes[k])) / 2**30
+            if label == "register per-tile":
+                require(got["K5"] == 0, f"mesh {label} {names[k]}: K5 launched on the per-tile route")
+            launches = {key: launches.get(key, 0) + v for key, v in got.items()}
+            res[f"{label} {names[k]}"] = dict(peak_gib=peak, launches=got, s=secs[k])
+        a, b = outs["one"], outs["other"]
+        if isinstance(a, dict):
+            a = [v for v in a.values() if isinstance(v, torch.Tensor)]
+            b = [v for v in b.values() if isinstance(v, torch.Tensor)]
+        else:
+            a, b = [a], [b]
+        same = len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+        peaks = [res[f"{label} {names[k]}"]["peak_gib"] for k in ("one", "other")]
+        log(f"[mesh] {label}: {names['one']} {secs['one'][0]:.4f}, {secs['one'][1]:.4f} s, peak {peaks[0]:.2f} GiB; "
+            f"{names['other']} {secs['other'][0]:.4f}, {secs['other'][1]:.4f} s, peak {peaks[1]:.2f} GiB "
+            f"(in turns); bit-equal: {same}")
+        require(same, f"mesh {label}: the result on {names['other']} differs from the one on {names['one']}")
+        if label.startswith("register"):
+            flows[label] = outs["one"]
+            require(bool(torch.isfinite(outs["one"]).all()), f"mesh {label}: non-finite flow")
+    res["launches"] = launches
+    return res
+
+
+def run_mesh_workers(mode: str, backend: str, nproc: int, work: Path, card_per_rank: bool = False) -> list:
+    """``nproc`` ranks of ``MESH_WORKER`` in ``mode`` over ``backend``
+    (with ``card_per_rank``, rank i sees only card i), each killed if it has
+    not finished within ``MESH_WORKER_TIMEOUT_S``; their reports."""
+    import socket
+
+    script = work / "mesh_worker.py"
+    script.write_text(MESH_WORKER)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        coord = f"localhost:{s.getsockname()[1]}"
+    procs = []
+    for pid in range(nproc):
+        env = dict(os.environ, **({"CUDA_VISIBLE_DEVICES": str(pid)} if card_per_rank else {}))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(script), mode, backend, str(pid), str(nproc), coord, str(ROOT), str(work)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MESH_WORKER_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    reports = []
+    for pid, (p, out) in enumerate(zip(procs, outs)):
+        line = [ln for ln in out.splitlines() if ln.startswith("MESH_WORKER ")]
+        require(p.returncode == 0 and line, f"mesh {mode} rank {pid} failed (rc {p.returncode}):\n{out[-4000:]}")
+        reports.append(json.loads(line[-1][len("MESH_WORKER "):]))
+    return reports
+
+
+def group_collectives(backend: str, nproc: int, work: Path, card_per_rank: bool = False) -> dict:
+    """``tile_map`` (gathered across the ranks) and an ``all_reduce`` in a
+    group of ``nproc`` ranks over ``backend``."""
+    t0 = time.perf_counter()
+    reports = run_mesh_workers("collectives", backend, nproc, work, card_per_rank)
+    secs = time.perf_counter() - t0
+    for r in reports:
+        log(f"[mesh] {backend} rank {r['rank']} of {r['world']}: tile_map {r['tile_map_ok']}, all_reduce "
+            f"{r['all_reduce_ok']} ({secs:.1f} s with the process starts)")
+        require(r["backend"] == backend and r["world"] == nproc and r["tile_map_ok"] and r["all_reduce_ok"], r)
+    return dict(s=secs, ranks=reports)
+
+
+def group_step(step_report: dict, backend: str, nproc: int, work: Path, card_per_rank: bool = False) -> dict:
+    """(a)'s step in a group of ``nproc`` ranks over ``backend``: each
+    rank's outputs bit-equal (by SHA-256) to the one-process result, the
+    histogram at exactly 4096^2, K1-K4 launched and no plain version."""
+    ref, mov = step_report["pair"]
+    torch.save({"ref": ref.cpu(), "mov": mov.cpu(),
+                "params": (STEP_N, STEP_TILE, STEP_OVERLAP, STEP_WIN, STEP_ITERS)}, work / "pair.pt")
+    t0 = time.perf_counter()
+    ranks = run_mesh_workers("step", backend, nproc, work, card_per_rank)
+    secs = time.perf_counter() - t0
+    launches = {}
+    for r in ranks:
+        same = r["digest"] == step_report["digest"]
+        log(f"[mesh] {backend} rank {r['rank']} of {r['world']} ({r['shards']} shards): step outputs bit-equal to "
+            f"the one-process result: {same}; histogram sum {r['hist_sum']}; launches {r['launches']}, plain calls "
+            f"{r['plain_calls']} ({secs:.1f} s for the group with the process starts)")
+        require(r["backend"] == backend and r["world"] == nproc and same and r["hist_sum"] == STEP_N**2, r)
+        require(all(v > 0 for v in r["launches"].values()) and r["plain_calls"] == 0, r)
+        launches = {k: launches.get(k, 0) + v for k, v in r["launches"].items()}
+    return dict(s=secs, digest=ranks[0]["digest"], launches=launches)
+
+
+def mesh_groups(step_report: dict) -> dict:
+    """(d) process groups formed by ``init_distributed_from_env``, each rank
+    a subprocess on the one card: a 1-rank NCCL group running ``tile_map``
+    (gathered through NCCL) and an ``all_reduce``, then 2 gloo ranks
+    running (a)'s step."""
+    work = Path(tempfile.mkdtemp(prefix="ma_chip_smoke_mesh_"))
+    try:
+        nccl = group_collectives("nccl", 1, work)
+        gloo = group_step(step_report, "gloo", 2, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(nccl=nccl, gloo=gloo, launches=gloo["launches"])
+
+
+def mesh_phase(dev, rng, counters: "Counters") -> dict:
+    """Phase 11: the tile mesh.  Returns one report entry a part, each with
+    the launches counted from 0 around it."""
+    t0 = time.perf_counter()
+    step = mesh_step(dev, rng, counters)
+    out = {"mesh_step": step,
+           "mesh_step_parity": mesh_step_parity(dev, rng, counters),
+           "mesh_engines": mesh_engines(dev, rng, counters),
+           "mesh_groups": mesh_groups(step)}
+    del step["pair"]
+    log(f"[mesh] phase 11 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def mesh_cards() -> int:
+    """``python3 chip_smoke.py --cards``, on a machine with two or more
+    cards: phase 11 with a mesh of every visible card where that phase
+    repeats one card: (a) the step on (cuda:0,) and on every card, (c) the
+    engines on every card against (cuda:0,), and (d) NCCL groups of one
+    rank a card (each rank sees one card through ``CUDA_VISIBLE_DEVICES``)
+    running ``tile_map`` with an ``all_reduce`` and (a)'s step; every result
+    bit-equal to the one-device one.  Writes
+    ``chiprun_out/mesh_cards_report.json``; ends with the cards' names and
+    power limits and ``{"ok": true, ...}``."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        raise SystemExit("chip_smoke --cards: this run needs two or more NVIDIA GPUs")
+    from microaligner_tpu_torch.ops import cuda_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    dev = cards[0]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    t0 = time.perf_counter()
+    cuda_lib.build()
+    cuda_lib.library()
+    log(f"[cards] {len(cards)} cards; kernels built in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(20261017)
+    counters = Counters()
+    report = {"cards": len(cards), "nvidia_smi": smi.splitlines()}
+    step = mesh_step(dev, rng, counters, meshes=[(dev,), tuple(cards)])
+    report["step"] = {k: v for k, v in step.items() if k != "pair"}
+    report["engines"] = mesh_engines(dev, rng, counters, other=cards)
+    work = Path(tempfile.mkdtemp(prefix="ma_chip_smoke_cards_"))
+    try:
+        report["nccl_collectives"] = group_collectives("nccl", len(cards), work, card_per_rank=True)
+        report["nccl_step"] = group_step(step, "nccl", len(cards), work, card_per_rank=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "mesh_cards_report.json").write_text(json.dumps(report, indent=1, default=str))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def k3_build_lines(ptxas: str) -> dict:
     """Registers, spill bytes, shared memory a block and blocks an SM of the
     two K3 kernels from ``nvcc -Xptxas -v``'s output (empty when the library
@@ -2150,6 +2565,7 @@ def main():
     report["chained_4096"] = chained_cli(dev, rng, counters, 4096, big=False)
     report["chained_20480"] = chained_cli(dev, rng, counters, 20480, big=True)
     report["auto"] = auto_feature_pass(dev, rng, counters)
+    report.update(mesh_phase(dev, rng, counters))
 
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start
@@ -2165,7 +2581,8 @@ def main():
                "K6": ("poly_exp5", "poly.cu", "microaligner_tpu/ops/pallas_poly.py:83")}
     # each path's launches, counted from 0 just before it and read just after
     paths = ("main", "unpaired", "zstack", "cli_4096", "routes_parity", "routes_per_tile_20480", "routes_drivers",
-             "routes_cli_4096", "routes_feature", "cli_20480", "feature", "chained_4096", "chained_20480", "auto")
+             "routes_cli_4096", "routes_feature", "cli_20480", "feature", "chained_4096", "chained_20480", "auto",
+             "mesh_step", "mesh_step_parity", "mesh_engines", "mesh_groups")
     launches = {k: sum(report[path]["launches"].get(k, 0) for path in paths) for k in sources}
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"microaligner_tpu_torch/csrc/{src}",
@@ -2181,4 +2598,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(mesh_cards() if sys.argv[1:] == ["--cards"] else main())

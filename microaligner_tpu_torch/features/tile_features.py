@@ -21,8 +21,11 @@ different descriptors near tile seams:
   tiles with their 51 px halo (``split_into_tiles``), one at a time, FAST
   top-k on the interior and DAISY on the halo tile at the interior coords;
 * banded otherwise: the whole-level path a grid row at a time, cubes over
-  the band with ``halo`` rows of context; on one GPU the band map is a
-  loop.
+  the band with ``halo`` rows of context.
+
+The banded and per-tile maps are sharded over the tile mesh of the image's
+device (``parallel.current_tile_mesh``), one grid row or one tile a call,
+as the JAX package's ``unbatched`` maps are; the whole level is one call.
 
 FAST is bit-exact across the three: coords, validity and responses agree.
 """
@@ -44,6 +47,7 @@ from microaligner_tpu_torch.features.fast import fast_detect_topk, fast_detect_t
 from microaligner_tpu_torch.features.match import match_descriptors
 from microaligner_tpu_torch.features.ransac import estimate_affine_partial_2d
 from microaligner_tpu_torch.ops.pad import zero_pad
+from microaligner_tpu_torch.parallel.tile_runner import current_tile_mesh, tile_map
 from microaligner_tpu_torch.tiles import TileGrid, split_into_tiles
 from microaligner_tpu_torch.utils.device import resolve_device
 from microaligner_tpu_torch.utils.logging import log
@@ -125,8 +129,9 @@ def _find_features_banded(img: torch.Tensor, grid: TileGrid, k: int, normalize: 
     th, tw = grid.tile_h, grid.tile_w
     ox = (torch.arange(grid.nx, device=img.device) * tw).to(torch.float32)
     shift = torch.stack([ox, torch.zeros_like(ox)], dim=-1)[:, None, :]
-    outs = []
-    for i in range(grid.ny):
+
+    def band(i, interior, halo, shift):
+        i = int(i)
         coords, resp, valid = fast_detect_topk_grid(interior[i * th : (i + 1) * th], th, tw, k,
                                                     threshold=1)
         cubes = _orientation_cubes(halo[i * th : (i + 1) * th + 2 * HALO])
@@ -136,8 +141,11 @@ def _find_features_banded(img: torch.Tensor, grid: TileGrid, k: int, normalize: 
         del cubes
         if normalize:
             desc = normalize_descriptors(desc)
-        outs.append((coords, desc.reshape(grid.nx, k, -1), valid, resp))
-    return tuple(torch.cat([o[j] for o in outs]) for j in range(4))
+        return coords, desc.reshape(grid.nx, k, -1), valid, resp
+
+    outs = tile_map(band, (torch.arange(grid.ny),), batch=1, mesh=current_tile_mesh(img.device),
+                    broadcast=(interior, halo, shift), unbatched=True)
+    return tuple(o.reshape((grid.num_tiles,) + tuple(o.shape[2:])) for o in outs)
 
 
 def _find_features_per_tile(img: torch.Tensor, grid: TileGrid, k: int, normalize: bool):
@@ -145,12 +153,13 @@ def _find_features_per_tile(img: torch.Tensor, grid: TileGrid, k: int, normalize
     whole halo tile at the interior coords (the reference's consistent
     (-51, -51) offset, which cancels between ref and mov)."""
     tiles = split_into_tiles(img, grid)  # (N, tile + 102, tile + 102)
-    outs = []
-    for tile in tiles:
+
+    def per_tile(tile):
         coords, resp, valid = fast_detect_topk(tile[HALO:-HALO, HALO:-HALO], k, threshold=1)
         desc = daisy_at_points(tile.to(torch.float32), coords, normalize=normalize)
-        outs.append((coords, desc, valid, resp))
-    return tuple(torch.stack([o[j] for o in outs]) for j in range(4))
+        return coords, desc, valid, resp
+
+    return tile_map(per_tile, (tiles,), batch=1, mesh=current_tile_mesh(img.device), unbatched=True)
 
 
 def _dense_level_enabled(grid: TileGrid) -> bool:

@@ -17,6 +17,11 @@ K1 gathers its four taps anywhere in the plane, so it is exact for any
 matrix: the JAX package's band contract (``plan_affine_tiled``), its
 windowed canvas and its exact-gather fallback, which exist because a TPU
 gathers slowly, have no counterpart here.
+
+The band axis is sharded over the tile mesh of the plane's device
+(``parallel.current_tile_mesh``), as the JAX package's ``_affine_tiled_exec``
+shards its tiles; on the plane's one device each band is written straight
+into the output.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import numpy as np
 import torch
 
 from microaligner_tpu_torch.ops.kernel_sample import sample_displaced
+from microaligner_tpu_torch.parallel.tile_runner import current_tile_mesh, mesh_is_local, tile_map
 
 __all__ = ["affine_warp_bands", "affine_warp_traced", "inverse_affine_traced"]
 
@@ -41,30 +47,48 @@ def affine_warp_bands(img: torch.Tensor, inv, out_h: int, out_w: int,
     dev = src.device
     if isinstance(inv, torch.Tensor):
         m = inv.to(dev, torch.float32)
-        m00, m01, tx = m[0, 0] - 1.0, m[0, 1], m[0, 2]
-        m10, m11, ty = m[1, 0], m[1, 1] - 1.0, m[1, 2]
 
-        def consts(r0):
-            return m01 * float(r0) + tx, m11 * float(r0) + ty
+        def coefs(m):  # M = A - I and the translation, on m's device
+            return m[0, 0] - 1.0, m[0, 1], m[0, 2], m[1, 0], m[1, 1] - 1.0, m[1, 2]
+
+        def consts(c, r0):
+            return c[1] * float(r0) + c[2], c[4] * float(r0) + c[5]
     else:
         a = np.asarray(inv, np.float64)
-        m00, m01 = float(np.float32(a[0, 0] - 1.0)), float(np.float32(a[0, 1]))
-        m10, m11 = float(np.float32(a[1, 0])), float(np.float32(a[1, 1] - 1.0))
+        m = torch.zeros(0)  # nothing to copy: the host matrix's terms are Python floats
 
-        def consts(r0):
+        def coefs(m):
+            return (float(np.float32(a[0, 0] - 1.0)), float(np.float32(a[0, 1])), None,
+                    float(np.float32(a[1, 0])), float(np.float32(a[1, 1] - 1.0)), None)
+
+        def consts(c, r0):
             return (float(np.float32(a[0, 1] * r0 + a[0, 2])),
                     float(np.float32((a[1, 1] - 1.0) * r0 + a[1, 2])))
-    xs = torch.arange(out_w, device=dev, dtype=torch.float32).view(1, out_w)
-    rows = band_rows or max(1, BAND_PIXELS // max(1, out_w))
-    out = torch.empty((out_h, out_w), dtype=torch.float32, device=dev)
-    for r0 in range(0, out_h, rows):
-        bh = min(rows, out_h - r0)
-        yl = torch.arange(bh, device=dev, dtype=torch.float32).view(bh, 1)
-        cx, cy = consts(r0)
-        fx = m00 * xs + (m01 * yl + cx)
-        fy = m10 * xs + (m11 * yl + cy)
-        out[r0 : r0 + bh] = sample_displaced(src, fx[None], fy[None], row0=r0)[0]
-    return out
+
+    def band(r0, bh, src, c, xs):
+        yl = torch.arange(bh, device=src.device, dtype=torch.float32).view(bh, 1)
+        cx, cy = consts(c, r0)
+        fx = c[0] * xs + (c[1] * yl + cx)
+        fy = c[3] * xs + (c[4] * yl + cy)
+        return sample_displaced(src, fx[None], fy[None], row0=r0)[0]
+
+    def xs_on(device):
+        return torch.arange(out_w, device=device, dtype=torch.float32).view(1, out_w)
+
+    rows = min(band_rows or max(1, BAND_PIXELS // max(1, out_w)), max(out_h, 1))
+    mesh = current_tile_mesh(dev)
+    if mesh_is_local(mesh, dev):
+        c, xs = coefs(m), xs_on(dev)
+        out = torch.empty((out_h, out_w), dtype=torch.float32, device=dev)
+        for r0 in range(0, out_h, rows):
+            out[r0 : r0 + rows] = band(r0, min(rows, out_h - r0), src, c, xs)
+        return out
+    # every band samples all ``rows`` rows (those past ``out_h`` are dropped)
+    # so that the shards' outputs stack
+    nb = -(-out_h // rows)
+    bands = tile_map(lambda i, src, m: band(int(i) * rows, rows, src, coefs(m), xs_on(src.device)),
+                     (torch.arange(nb),), batch=1, mesh=mesh, broadcast=(src, m.to(dev)), unbatched=True)
+    return bands.reshape(nb * rows, out_w)[:out_h]
 
 
 def inverse_affine_traced(fwd: torch.Tensor) -> torch.Tensor:

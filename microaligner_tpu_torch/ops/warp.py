@@ -45,6 +45,7 @@ __all__ = [
     "warp_with_flow_batched",
     "warp_with_flow_parts_batched",
     "warp_band",
+    "warp_band_rows",
     "warp_planes_with_flow",
     "warp_planes_with_flow_parts",
     "compose_flows",
@@ -109,6 +110,24 @@ def warp_band(imgs: torch.Tensor, flow, out: torch.Tensor, row0: int, rows: int,
     band_flow = flow if isinstance(flow, tuple) else flow[lo:hi]
     warped = sample_band_multi(slab, band_flow, torch.empty_like(slab), row0 - lo, rows, overlap)
     out[:, row0 : row0 + n_in] = round_to_dtype(warped[:, row0 - lo : row0 - lo + n_in], out.dtype)
+
+
+def warp_band_rows(imgs: torch.Tensor, flow, row0: int, rows: int, overlap: int,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """The band of :func:`warp_band` as its own (N, rows, W) tensor of
+    ``dtype`` (rows past the image are zero), for a band map whose shards
+    cannot write into one output: :func:`warp_band` on the band's source
+    rows alone, which gives the same values (the kernel splits each
+    displacement into integer and fraction before adding the row, so the
+    shifted origin changes no bit)."""
+    n, h, w = imgs.shape
+    n_in, lo, hi = band_bounds(h, row0, rows, overlap)
+    slab = imgs[:, lo:hi].contiguous()
+    out = torch.empty(slab.shape, dtype=dtype, device=imgs.device)
+    warp_band(slab, flow if isinstance(flow, tuple) else flow[lo:hi], out, row0 - lo, rows, overlap)
+    res = out.new_zeros((n, rows, w))
+    res[:, :n_in] = out[:, row0 - lo : row0 - lo + n_in]
+    return res
 
 
 def warp_planes_with_flow(imgs: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,11 @@ variable ``MICROALIGNER_TPU_FLOW_DENSE``, read on every call of
   through K1 by the window's flow with a zero halo.
 
 Both decompositions are the JAX package's, so the flow near band and tile
-seams agrees with it on either route.
+seams agrees with it on either route.  On either route the band or tile
+axis is sharded over the tile mesh of the inputs' device
+(``parallel.current_tile_mesh``); the images and canvases are passed to
+``tile_map`` as ``broadcast`` tensors, so a shard on another device reads its
+own copy.
 """
 
 from __future__ import annotations
@@ -31,9 +35,9 @@ import numpy as np
 import torch
 
 from microaligner_tpu_torch.ops.filters import round_to_dtype
-from microaligner_tpu_torch.ops.warp import warp_band, warp_with_flow_parts_batched
+from microaligner_tpu_torch.ops.warp import warp_band, warp_band_rows, warp_with_flow_parts_batched
 from microaligner_tpu_torch.optflow.farneback import _farneback_core_parts, farneback
-from microaligner_tpu_torch.parallel import tile_map
+from microaligner_tpu_torch.parallel.tile_runner import current_tile_mesh, mesh_is_local, tile_map
 from microaligner_tpu_torch.tiles import TileGrid, pad_canvas, stitch_interiors, tile_origins
 from microaligner_tpu_torch.utils.device import resolve_device
 
@@ -103,27 +107,42 @@ def _dense_banded_core(ref_img, mov_img, warp_src, grid: TileGrid, win_size: int
     is not read: only interiors are kept), rounded to ``out_dtype`` and
     written into the band's rows, one K5 launch a band (``warp_band``, the
     band's flow in its slab coordinates).  Returns (fx, fy[, warped]), each
-    (H, W)."""
+    (H, W).
+
+    The band axis is sharded over the tile mesh.  On the inputs' one
+    device each band's warp is written straight into one ``warped``; over
+    several devices a band warps its own source rows into an output on its
+    shard's device and returns it (``warp_band_rows``)."""
     h, w, o = grid.height, grid.width, grid.overlap
     nb = -(-h // band_rows)
+    mesh = current_tile_mesh(ref_img.device)
+    images = (ref_img, mov_img)
     warped = None
     if warp_src is not None:
-        warp_src = warp_src.contiguous()
-        warped = torch.empty((h, w), dtype=out_dtype, device=warp_src.device)
+        images += (warp_src.contiguous(),)
+        if mesh_is_local(mesh, ref_img.device):
+            warped = torch.empty((h, w), dtype=out_dtype, device=warp_src.device)
 
-    def band(i):
+    def band(i, ref, mov, *src):
         row0 = int(i) * band_rows
-        br = band_slab(ref_img, row0, band_rows, o)
-        bm = band_slab(mov_img, row0, band_rows, o)
+        br = band_slab(ref, row0, band_rows, o)
+        bm = band_slab(mov, row0, band_rows, o)
         fx, fy = _farneback_core_parts(bm[None], br[None], win_size, num_iter, 1, 1.7)
-        if warp_src is not None:
-            warp_band(warp_src[None], (fx[0], fy[0]), warped[None], row0, band_rows, o)
         sl = (slice(None), slice(o, o + band_rows), slice(o, o + w))
-        return fx[sl], fy[sl]
+        if not src:
+            return fx[sl], fy[sl]
+        if warped is not None:
+            warp_band(src[0][None], (fx[0], fy[0]), warped[None], row0, band_rows, o)
+            return fx[sl], fy[sl]
+        return fx[sl], fy[sl], warp_band_rows(src[0][None], (fx[0], fy[0]), row0, band_rows, o, out_dtype)
 
-    outs = tile_map(band, (torch.arange(nb),), batch=1)
-    flow = tuple(x.reshape(nb * band_rows, w)[:h] for x in outs)
-    return flow if warped is None else flow + (warped,)
+    outs = tile_map(band, (torch.arange(nb),), batch=1, mesh=mesh, broadcast=images)
+    flow = tuple(x.reshape(nb * band_rows, w)[:h] for x in outs[:2])
+    if warp_src is None:
+        return flow
+    if warped is None:
+        warped = outs[2].reshape(nb * band_rows, w)[:h]
+    return flow + (warped,)
 
 
 def _interior(grid: TileGrid) -> tuple:
@@ -136,16 +155,17 @@ def _calc_flow_tiled(ref_img, mov_img, grid: TileGrid, win_size: int, num_iter: 
     """The per-tile route: ``batch`` halo windows a chunk sliced from the
     zero canvases in the input dtype, Farneback on the chunk as float32,
     the interiors stitched into the (H, W, 2) flow."""
-    canvas_r, canvas_m = pad_canvas(ref_img, grid), pad_canvas(mov_img, grid)
+    canvases = (pad_canvas(ref_img, grid), pad_canvas(mov_img, grid))
     sl = _interior(grid)
 
-    def chunk(origins):
+    def chunk(origins, canvas_r, canvas_m):
         wr = halo_windows(canvas_r, origins, grid).to(torch.float32)
         wm = halo_windows(canvas_m, origins, grid).to(torch.float32)
         fx, fy = _farneback_core_parts(wm, wr, win_size, num_iter, 1, 1.7)
         return fx[sl], fy[sl]
 
-    fx, fy = tile_map(chunk, (torch.from_numpy(tile_origins(grid)),), batch=batch)
+    fx, fy = tile_map(chunk, (torch.from_numpy(tile_origins(grid)),), batch=batch,
+                      mesh=current_tile_mesh(ref_img.device), broadcast=canvases)
     return torch.stack([stitch_interiors(fx, grid), stitch_interiors(fy, grid)], dim=-1)
 
 
@@ -155,19 +175,20 @@ def _calc_flow_and_warp_tiled(ref_img, mov_img, warp_src, grid: TileGrid, win_si
     windows of ``warp_src`` are pulled through K1 by the windows' flow with
     a zero halo (only interiors are kept, as in the per-tile warp) and
     rounded to ``out_dtype`` inside the chunk."""
-    canvases = [pad_canvas(img, grid) for img in (ref_img, mov_img, warp_src)]
+    canvases = tuple(pad_canvas(img, grid) for img in (ref_img, mov_img, warp_src))
     o = grid.overlap
     interior = torch.zeros(grid.tile_shape, dtype=torch.float32, device=ref_img.device)
     interior[o : o + grid.tile_h, o : o + grid.tile_w] = 1.0
     sl = _interior(grid)
 
-    def chunk(origins):
-        wr, wm, ws = (halo_windows(c, origins, grid).to(torch.float32) for c in canvases)
+    def chunk(origins, canvas_r, canvas_m, canvas_w, inside):
+        wr, wm, ws = (halo_windows(c, origins, grid).to(torch.float32) for c in (canvas_r, canvas_m, canvas_w))
         fx, fy = _farneback_core_parts(wm, wr, win_size, num_iter, 1, 1.7)
-        warped = warp_with_flow_parts_batched(ws, fx * interior, fy * interior)
+        warped = warp_with_flow_parts_batched(ws, fx * inside, fy * inside)
         return fx[sl], fy[sl], round_to_dtype(warped[sl], out_dtype)
 
-    fx, fy, warped = tile_map(chunk, (torch.from_numpy(tile_origins(grid)),), batch=batch)
+    fx, fy, warped = tile_map(chunk, (torch.from_numpy(tile_origins(grid)),), batch=batch,
+                              mesh=current_tile_mesh(ref_img.device), broadcast=canvases + (interior,))
     flow = torch.stack([stitch_interiors(fx, grid), stitch_interiors(fy, grid)], dim=-1)
     return flow, stitch_interiors(warped, grid)
 

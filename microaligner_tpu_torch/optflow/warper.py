@@ -17,7 +17,8 @@ Either way a displacement beyond ``overlap`` reads zeros, as in the
 reference's per-tile ``cv.remap``; the two differ where a displacement
 leaves a tile's halo but not its band's slab.  N planes by one flow
 (:func:`warp_planes_tiled`) are always banded, as in the JAX package; the
-tiled composition samples through K1.
+tiled composition samples through K1.  The tile and band axes are sharded
+over the tile mesh of the inputs' device (``parallel.current_tile_mesh``).
 """
 
 from __future__ import annotations
@@ -32,10 +33,11 @@ from microaligner_tpu_torch.ops.pad import zero_pad
 from microaligner_tpu_torch.ops.warp import (
     compose_flows_batched,
     warp_band,
+    warp_band_rows,
     warp_with_flow_parts_batched,
 )
 from microaligner_tpu_torch.optflow.flow_calc import _interior, band_rows_for, dense_banded, halo_windows
-from microaligner_tpu_torch.parallel import tile_map
+from microaligner_tpu_torch.parallel.tile_runner import current_tile_mesh, mesh_is_local, tile_map
 from microaligner_tpu_torch.tiles import (
     TileGrid,
     pad_canvas,
@@ -94,12 +96,13 @@ def _warp_tiled(image: torch.Tensor, flow: torch.Tensor, grid: TileGrid,
     fy_int = split_interiors(flow[..., 1], grid)
     sl = _interior(grid)
 
-    def chunk(origins, fxt, fyt):
+    def chunk(origins, fxt, fyt, canvas):
         wins = halo_windows(canvas, origins, grid).to(torch.float32)
         warped = warp_with_flow_parts_batched(wins, zero_pad(fxt, o, o, o, o), zero_pad(fyt, o, o, o, o))
         return round_to_dtype(warped[sl], dtype)
 
-    warped = tile_map(chunk, (torch.from_numpy(tile_origins(grid)), fx_int, fy_int), batch=_TILE_BATCH)
+    warped = tile_map(chunk, (torch.from_numpy(tile_origins(grid)), fx_int, fy_int), batch=_TILE_BATCH,
+                      mesh=current_tile_mesh(image.device), broadcast=(canvas,))
     return stitch_interiors(warped, grid)
 
 
@@ -119,14 +122,28 @@ def warp_planes_tiled(imgs: torch.Tensor, flow: torch.Tensor, grid: TileGrid,
     dtype go through the kernel's float32 instantiation one band's slab at a
     time, then are rounded: one slab of float32 planes and its result live
     at once.
+
+    Over a tile mesh of several devices the band axis is sharded: each band
+    warps its own source rows on its shard's device (``warp_band_rows``)
+    and the bands are gathered and stacked.
     """
     flow = flow.to(torch.float32).contiguous()
     imgs = imgs.contiguous()
     rows = band_rows_for(grid, band_rows)
-    out = torch.empty((imgs.shape[0], grid.height, grid.width), dtype=dtype, device=imgs.device)
-    for row0 in range(0, grid.height, rows):
-        warp_band(imgs, flow, out, row0, rows, grid.overlap)
-    return out
+    h, o = grid.height, grid.overlap
+    mesh = current_tile_mesh(imgs.device)
+    if mesh_is_local(mesh, imgs.device):
+        out = torch.empty((imgs.shape[0], h, grid.width), dtype=dtype, device=imgs.device)
+        for row0 in range(0, h, rows):
+            warp_band(imgs, flow, out, row0, rows, o)
+        return out
+
+    def band(i, planes, fl):
+        return warp_band_rows(planes, fl, int(i) * rows, rows, o, dtype)
+
+    nb = -(-h // rows)
+    bands = tile_map(band, (torch.arange(nb),), batch=1, mesh=mesh, broadcast=(imgs, flow), unbatched=True)
+    return bands.transpose(0, 1).reshape(imgs.shape[0], nb * rows, grid.width)[:, :h].contiguous()
 
 
 def compose_flows_tiled(flow1: torch.Tensor, flow2: torch.Tensor, grid: TileGrid) -> torch.Tensor:
@@ -143,11 +160,12 @@ def compose_flows_tiled(flow1: torch.Tensor, flow2: torch.Tensor, grid: TileGrid
     c1 = pad_canvas(flow1, grid)
     c2 = pad_canvas(flow2, grid)
 
-    def chunk(origins):
+    def chunk(origins, c1, c2):
         f1, f2 = halo_windows(c1, origins, grid), halo_windows(c2, origins, grid)
         return compose_flows_batched(f1, f2)[:, o : o + grid.tile_h, o : o + grid.tile_w]
 
-    out = tile_map(chunk, (torch.from_numpy(tile_origins(grid)),), batch=_COMPOSE_BATCH)
+    out = tile_map(chunk, (torch.from_numpy(tile_origins(grid)),), batch=_COMPOSE_BATCH,
+                   mesh=current_tile_mesh(flow1.device), broadcast=(c1, c2))
     return stitch_interiors(out, grid)
 
 

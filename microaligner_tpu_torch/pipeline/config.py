@@ -4,8 +4,9 @@ Schema, field names, dtype checks, bounds, and input-topology inference all
 match the reference (pipeline_modules/config_reader.py): three input layouts
 (``CycleStack`` / ``CycleBuilder`` / ``CyclePerImage``), bounds
 NumberPyramidLevels 0..8, NumberIterationsPerLevel >=1, TileSize >=20,
-Overlap 10..TileSize, NumberOfWorkers >=0 (accepted for config compatibility;
-tile parallelism maps to the device mesh instead of a worker pool).
+Overlap 10..TileSize, NumberOfWorkers >=0 (tile parallelism maps to a device
+mesh instead of a worker pool, and the key caps the mesh: 0 is every visible
+card, ``utils/workers.py``).
 
 The implementation is table-driven: each section is a tuple of field specs
 ``(name, accepted types, lo, hi)`` validated by one generic checker, and the
