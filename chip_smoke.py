@@ -103,8 +103,15 @@ Run it from the repository root; with no arguments it needs one card.  Phases, e
    within 1e-4 and translation within 0.05 px of the whole route's) and
    the per-tile feature path (``FEATURE_DENSE=0``: the whole level's
    keypoints), each within 0.5 px of the truth, then ``FEATURE_DENSE=0``
-   once at ``FEATURE_PER_TILE_N``^2, timed.  Phase 2 also holds K2-K4 at
-   the per-tile route's chunk, 8 halo windows of 1200^2, and times them;
+   once at ``FEATURE_PER_TILE_N``^2, timed; FeatureReg under
+   ``DAISY_NRM=0`` (the reference's raw descriptors) at config 1's
+   parameters: at 1024^2 with and without DoG on the card and on the CPU
+   (corners within 1e-3 px, the same outcome), at 4096^2 without DoG within
+   0.5 px of the truth, at 20480^2 timed beside the unit-norm route with
+   each ``match_descriptors`` call's near-ties; and a 20480^2 register
+   under ``FLOW_BAND_ROWS=1088``, bit-equal to ``band_rows = 1088``, timed
+   beside the default bands.  Phase 2 also holds K2-K4 at the per-tile
+   route's chunk, 8 halo windows of 1200^2, and times them;
 11. the tile mesh (``mesh_phase``; one card, so a mesh of several entries
    repeats ``cuda:0`` and its shards run one after the other): (a) the
    sharded register step (``parallel/step.py``) at config 2 of the JAX
@@ -1761,7 +1768,7 @@ def auto_feature_pass(dev, rng, counters: "Counters", h=4096) -> dict:
 # -- phase 10 --------------------------------------------------------------
 
 ROUTE_VARIABLES = ("FLOW_DENSE", "FLOW_TILE_BATCH", "WHOLE_REGISTER", "CARRY_LEVEL", "FUSED_REGISTER",
-                   "FUSED_LEVEL", "FEATURE_DENSE", "FEATURE_DENSE_MAX_MPIX")
+                   "FUSED_LEVEL", "FEATURE_DENSE", "FEATURE_DENSE_MAX_MPIX", "DAISY_NRM", "FLOW_BAND_ROWS")
 # the per-tile feature path's timed FeatureReg run: the largest plane the repo runs
 FEATURE_PER_TILE_N = 20480
 
@@ -2022,6 +2029,160 @@ def routes_feature(dev, rng, counters: "Counters", n=4096, n_big=FEATURE_PER_TIL
     return {"launches": launches, "runs": res}
 
 
+@contextlib.contextmanager
+def near_tie_census():
+    """Counts, for each ``match_descriptors`` call of the block, the queries
+    that it decided again in float64 (``match.near_ties``) and the queries
+    that the rule it replaced would have counted as near-ties (within 2^-14
+    of ``|q|^2 + max |t|^2``, of which it re-decided 256 at most), from the
+    float32 distances of that call."""
+    from microaligner_tpu_torch.features import match, registrator
+
+    top2, match_descriptors = match._top2, registrator.match_descriptors
+    last, old = {}, []
+
+    def spy_top2(query, train, t_valid, chunk):
+        out = top2(query, train, t_valid, chunk)
+        if query.dtype == torch.float32:
+            last.update(out=out, t_valid=t_valid)
+        return out
+
+    def spy_match(des_ref, des_mov, ref_valid, mov_valid, *args):
+        good, idx = match_descriptors(des_ref, des_mov, ref_valid, mov_valid, *args)
+        d1, d2, _, qn, tn = last.pop("out")
+        margin = (d1 - 0.25 * d2).abs() / (qn + torch.amax(torch.where(last["t_valid"], tn, 0.0)))
+        old.append(int(((margin <= 2.0**-14) & mov_valid).sum()))
+        return good, idx
+
+    match.near_ties.update(calls=0, rows=0, max=0)
+    match._top2, registrator.match_descriptors = spy_top2, spy_match
+    census = {"old_rule": old}
+    try:
+        yield census
+    finally:
+        match._top2, registrator.match_descriptors = top2, match_descriptors
+        census.update(match.near_ties)
+
+
+def routes_strict(dev, rng, counters: "Counters", sizes=(1024, 4096, 20480), n_band=20480) -> dict:
+    """FeatureReg under ``MICROALIGNER_TPU_DAISY_NRM=0`` (the reference's raw
+    DAISY descriptors) at config 1's parameters on pairs moved by its
+    ``t_true``: at ``sizes[0]`` with and without DoG on the card and on the
+    CPU (corners within 1e-3 px of each other; with DoG, whatever the CPU's
+    outcome is, the card's is the same); at ``sizes[1]`` without DoG within
+    0.5 px of the truth; at ``sizes[2]`` without DoG timed beside the
+    unit-norm route (strict, unit-norm, strict), with peak device memory and
+    the near-ties of each ``match_descriptors`` call.  Every card run
+    launches K1 and no plain version.  Then ``MICROALIGNER_TPU_FLOW_BAND_ROWS
+    =1088`` on an ``n_band``^2 ``register_device``: bit-equal to
+    ``band_rows = 1088``, timed beside the default bands."""
+    from microaligner_tpu_torch.features import FeatureRegistrator
+    from microaligner_tpu_torch.ops.filters import minmax_normalize_u8
+    from microaligner_tpu_torch.optflow.registrator import OptFlowRegistrator
+
+    t_true = np.array([[1.0004, 0.0003, 6.4], [-0.0003, 1.0004, -9.1]])
+    truth = inverse2x3(t_true)
+    res, launches = {}, {}
+
+    def pair(n):
+        ref = minmax_normalize_u8(texture(rng, n, n, dev)).cpu().numpy()
+        return ref, np.clip(np.round(warp_affine_scipy(ref, t_true)), 0, 255).astype(np.uint8)
+
+    def register(ref, mov, where, use_dog, label, nrm="0"):
+        reg = FeatureRegistrator(device=dev if where == "cuda" else "cpu")
+        reg.num_pyr_lvl, reg.num_iterations, reg.tile_size, reg.use_dog = 3, 3, 1000, use_dog
+        reg.ref_img, reg.mov_img = ref, mov
+        out = {}
+        with routes(DAISY_NRM=nrm), near_tie_census() as census:
+            if where == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+                counters.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                tmat = reg.register()
+            torch.cuda.synchronize()
+            out["s"] = time.perf_counter() - t0
+            if where == "cuda":
+                got = counters.read(f"routes strict {label}", ("K1",))
+                for k, v in got.items():
+                    launches[k] = launches.get(k, 0) + v
+                out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        out.update(near_ties=census, truth_err_px=corner_err(tmat, truth, ref.shape),
+                   identity=bool(np.abs(tmat - np.eye(2, 3)).max() < 1e-6))
+        return tmat, out
+
+    ref, mov = pair(sizes[0])
+    for use_dog in (False, True):
+        key = f"{sizes[0]}_{'dog' if use_dog else 'no_dog'}"
+        card, res[key] = register(ref, mov, "cuda", use_dog, key)
+        cpu, res[key + "_cpu"] = register(ref, mov, "cpu", use_dog, key + " cpu")
+        diff = corner_err(card, cpu, ref.shape)
+        res[key]["card_vs_cpu_px"] = diff
+        log(f"[routes] strict FeatureReg {key}: card {res[key]['s']:.2f} s, CPU {res[key + '_cpu']['s']:.2f} s; "
+            f"card vs CPU {diff:.2e} px; corners vs truth {res[key]['truth_err_px']:.4f} px; identity "
+            f"card {res[key]['identity']}, CPU {res[key + '_cpu']['identity']}")
+        require(diff < 1e-3, f"routes strict {key}: card vs CPU {diff} px")
+        require(res[key]["identity"] == res[key + "_cpu"]["identity"], f"routes strict {key}: outcomes differ")
+    ref, mov = pair(sizes[1])
+    key = f"{sizes[1]}_no_dog"
+    _, res[key] = register(ref, mov, "cuda", False, key)
+    log(f"[routes] strict FeatureReg {key}: {res[key]['s']:.2f} s, corners vs truth {res[key]['truth_err_px']:.4f} px")
+    require(res[key]["truth_err_px"] < 0.5, f"routes strict {key}: {res[key]['truth_err_px']} px from the truth")
+    ref, mov = pair(sizes[2])
+    runs = {"strict": [], "unit-norm": []}
+    for nrm in ("0", "1", "0"):
+        name = "strict" if nrm == "0" else "unit-norm"
+        _, out = register(ref, mov, "cuda", False, f"{sizes[2]} {name}", nrm)
+        runs[name].append(out)
+        log(f"[routes] {sizes[2]}^2 FeatureReg, no DoG, {name}: {out['s']:.2f} s, peak {out['peak_gib']:.2f} GiB, "
+            f"corners vs truth {out['truth_err_px']:.4f} px; near-ties re-decided in float64 {out['near_ties']}")
+        require(out["truth_err_px"] < 0.5, f"routes strict {sizes[2]} {name}: {out['truth_err_px']} px from the truth")
+    res[f"{sizes[2]}_no_dog"] = runs
+    del ref, mov
+
+    base = texture(rng, n_band, n_band, dev)
+    dx, dy = displacement(n_band, n_band, 3.0, 0.3, dev, wavelength=2000.0)
+    bref, bmov = minmax_normalize_u8(base), minmax_normalize_u8(remap_rows(base, dx, dy))
+    del base, dx, dy
+
+    def register_band(label, band_rows=None, **variables):
+        reg = OptFlowRegistrator(device=dev)
+        reg.num_pyr_lvl, reg.num_iterations, reg.tile_size, reg.overlap = 3, 3, 1000, 100
+        reg.use_full_res_img, reg.use_dog, reg.band_rows = True, False, band_rows
+        reg.ref_img, reg.mov_img = bref, bmov
+        with routes(**variables), contextlib.redirect_stdout(io.StringIO()):
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            counters.reset()
+            t0 = time.perf_counter()
+            flow = reg.register_device()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = counters.read(f"routes band rows {label}", ("K1", "K2", "K3", "K4", "K5"))
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        # the register's own peak: beyond what was live before it (an earlier run's flow)
+        return flow, {"s": secs, "peak_gib": (torch.cuda.max_memory_allocated(dev) - base) / 2**30, "launches": got}
+
+    bands = {}
+    env_flow, bands["FLOW_BAND_ROWS=1088"] = register_band("env", FLOW_BAND_ROWS="1088")
+    attr_flow, bands["band_rows=1088"] = register_band("attribute", band_rows=1088)
+    same = torch.equal(env_flow, attr_flow)
+    del attr_flow
+    default_flow, bands["default"] = register_band("default")
+    bands["max_diff_from_default_px"] = float((env_flow - default_flow).abs().max())
+    del env_flow, default_flow, bref, bmov
+    torch.cuda.empty_cache()
+    log(f"[routes] {n_band}^2 register_device by band height: {bands}; the variable bit-equal to the attribute: {same}")
+    require(same, "routes band rows: FLOW_BAND_ROWS=1088 differs from band_rows = 1088")
+    res["band_rows"] = bands
+    return {"launches": launches, "runs": res}
+
+
 def alternate_routes(dev, rng, counters: "Counters", stack_planes) -> dict:
     """Phase 10: the JAX package's alternate routes, each variable set for
     its case only.  Returns one report entry a case, each with the
@@ -2034,7 +2195,8 @@ def alternate_routes(dev, rng, counters: "Counters", stack_planes) -> dict:
             "routes_per_tile_20480": routes_per_tile_20480(dev, rng, counters),
             "routes_drivers": routes_drivers(dev, rng, counters),
             "routes_cli_4096": routes_cli_4096(dev, stack_planes, counters),
-            "routes_feature": routes_feature(dev, rng, counters)}
+            "routes_feature": routes_feature(dev, rng, counters),
+            "routes_strict": routes_strict(dev, rng, counters)}
 
 
 # -- phase 11 --------------------------------------------------------------
@@ -2581,7 +2743,7 @@ def main():
                "K6": ("poly_exp5", "poly.cu", "microaligner_tpu/ops/pallas_poly.py:83")}
     # each path's launches, counted from 0 just before it and read just after
     paths = ("main", "unpaired", "zstack", "cli_4096", "routes_parity", "routes_per_tile_20480", "routes_drivers",
-             "routes_cli_4096", "routes_feature", "cli_20480", "feature", "chained_4096", "chained_20480", "auto",
+             "routes_cli_4096", "routes_feature", "routes_strict", "cli_20480", "feature", "chained_4096", "chained_20480", "auto",
              "mesh_step", "mesh_step_parity", "mesh_engines", "mesh_groups")
     launches = {k: sum(report[path]["launches"].get(k, 0) for path in paths) for k in sources}
     log(json.dumps({"kernels": [

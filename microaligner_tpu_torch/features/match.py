@@ -10,11 +10,14 @@ cross term is TPU-only).  FLANN reports unsquared distances, so the ratio
 The CPU's BLAS and cuBLAS sum the float32 cross term in different orders,
 so a query whose ratio test lies within float32 rounding of its threshold
 could pass on one device and fail on the other.  :func:`match_descriptors`
-decides those near-ties again with float64 distances over every train row:
-the ``TIE_ROWS`` queries closest to their threshold, of which those within
-the rounding bound take the float64 decision and nearest index, with no
-host round trip.  The nearest index of a match that passes is never a
-near-tie: it beats the runner-up by more than 3/4 of d2.
+decides every such near-tie again with float64 distances over every train
+row, and takes its float64 decision and nearest index.  The rounding bound
+is each query's own: the rows that can be its nearest or runner-up lie
+within sqrt(d2) of it, so their norms are bounded by its norm and d2,
+whatever the norms of the other rows.  Raw DAISY descriptors
+(``MICROALIGNER_TPU_DAISY_NRM=0``), whose norms spread widely, need that.
+The nearest index of a match that passes is never a near-tie: it beats the
+runner-up by more than 3/4 of d2.
 """
 
 from __future__ import annotations
@@ -23,14 +26,17 @@ import torch
 
 from microaligner_tpu_torch.ops.filters import ieee_float32
 
-__all__ = ["knn_top2", "match_descriptors"]
+__all__ = ["knn_top2", "match_descriptors", "near_ties"]
 
 _BIG = 3.4e38
 _CHUNK_ELEMS = 1 << 27  # distance entries per query chunk
-TIE_ROWS = 256  # queries per call whose ratio test may be decided again in float64
-# bound on float32's error in d1 - ratio^2 * d2, relative to |q|^2 + max |t|^2
-# (two 200-term sums of products, each within 200 * 2^-24 of exact)
+# bound on float32's error in d1 - ratio^2 * d2, relative to |q|^2 + (|q| + sqrt(d2))^2,
+# which bounds |q|^2 + |t|^2 over the rows that can be the nearest or the runner-up: a
+# distance is within 406 * 2^-24 (|q|^2 + |t|^2) of exact (three 200-term sums of products,
+# three additions), the test within 1.25 times that, about 2^-15; twice it covers d2's rounding
 _TIE_TOL = 2.0**-14
+# queries decided again in float64: calls of match_descriptors, rows in all, most in one call
+near_ties = {"calls": 0, "rows": 0, "max": 0}
 
 
 def _top2(query: torch.Tensor, train: torch.Tensor, t_valid: torch.Tensor, chunk: int):
@@ -69,18 +75,19 @@ def match_descriptors(des_ref: torch.Tensor, des_mov: torch.Tensor, ref_valid: t
                       mov_valid: torch.Tensor, ratio: float = 0.5):
     """Ratio-filtered matches mov -> ref (query = mov, train = ref): keep
     ``d1 < ratio * d2`` on unsquared distances, near-ties decided in
-    float64.  Returns ``(good (Q,) bool, ref_idx (Q,) int64)`` aligned with
-    the mov rows."""
+    float64 (one host round trip for their count, kept in
+    :data:`near_ties`).  Returns ``(good (Q,) bool, ref_idx (Q,) int64)``
+    aligned with the mov rows."""
     r2 = ratio * ratio
     query, train = des_mov.to(torch.float32), des_ref.to(torch.float32)
-    d1, d2, i1, qn, tn = _top2(query, train, ref_valid, 4096)
+    d1, d2, i1, qn, _ = _top2(query, train, ref_valid, 4096)
     good = (d1 < r2 * d2) & mov_valid
-    tn_max = torch.amax(torch.where(ref_valid, tn, 0.0))
-    margin = torch.abs(d1 - r2 * d2) / (qn + tn_max).clamp_min(1e-30)
-    sel = torch.topk(torch.where(mov_valid, margin, _BIG), min(TIE_ROWS, query.shape[0]),
-                     largest=False).indices
-    e1, e2, ei, _, _ = _top2(query[sel].double(), train.double(), ref_valid, 4096)
-    near = margin[sel] <= _TIE_TOL
-    good[sel] = torch.where(near, (e1 < r2 * e2) & mov_valid[sel], good[sel])
-    i1[sel] = torch.where(near, ei, i1[sel])
+    scale = qn + torch.square(torch.sqrt(qn) + torch.sqrt(d2))
+    sel = torch.nonzero((torch.abs(d1 - r2 * d2) <= _TIE_TOL * scale) & mov_valid).squeeze(1)
+    n = sel.numel()
+    near_ties.update(calls=near_ties["calls"] + 1, rows=near_ties["rows"] + n, max=max(near_ties["max"], n))
+    if n:
+        e1, e2, ei, _, _ = _top2(query[sel].double(), train.double(), ref_valid, 4096)
+        good[sel] = e1 < r2 * e2
+        i1[sel] = ei
     return good, i1

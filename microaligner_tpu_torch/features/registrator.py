@@ -31,6 +31,12 @@ every ``register``:
   both NMI scores at once (``_mi_gate_pair``) read back, the host's validity
   check (``_check_if_valid_transform``), and an accepted round realigns the
   original mov by the float64 product of the accepted matrices.
+
+Every route reads ``MICROALIGNER_TPU_DAISY_NRM`` once a ``register``
+(``0``: the reference's raw DAISY descriptors; unit-norm ones otherwise):
+the reference pyramid's features and every round of the moving side are
+found in that one mode, and cached reference features found in the other
+mode are found again.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from microaligner_tpu_torch.features.ransac import _ransac_core
 from microaligner_tpu_torch.features.tile_features import (
     HALO,
     Features,
+    daisy_normalize,
     features_per_tile,
     find_features,
     find_features_tiled,
@@ -104,12 +111,14 @@ def _valid_transform_traced(est3: torch.Tensor, img_shape) -> torch.Tensor:
 
 
 def _level_align_body(ref_img, ref_feats: Features, mov_img, grid: TileGrid, k: int,
-                      tile_size: int, num_iterations: int, use_dog: bool, label: str = "feature"):
+                      tile_size: int, num_iterations: int, use_dog: bool, normalize: bool,
+                      label: str = "feature"):
     """One pyramid level's whole iterative alignment on the device.
 
     Returns (composed 2x3 float32, aligned image, diagnostics
     (num_iterations, 5) rows [n_good, n_total, mi_after, mi_before,
-    accepted]).  Under ``MICROALIGNER_TPU_PROFILE`` each round's four
+    accepted]); ``normalize`` is the DAISY mode of ``ref_feats``.  Under
+    ``MICROALIGNER_TPU_PROFILE`` each round's four
     steps are timed as ``{label} find`` (DoG, FAST, DAISY), ``match`` (knn
     and the ratio test), ``ransac`` and ``gate`` (the candidate warp, both
     NMI scores and the realign)."""
@@ -121,7 +130,7 @@ def _level_align_body(ref_img, ref_feats: Features, mov_img, grid: TileGrid, k: 
     rows = []
     for _ in range(num_iterations):
         with stage_timer(f"{label} find", dev):
-            coords, desc, valid, _resp = find_features_tiled(dog_traced(aligned, use_dog), grid, k)
+            coords, desc, valid, _resp = find_features_tiled(dog_traced(aligned, use_dog), grid, k, normalize)
         with stage_timer(f"{label} match", dev):
             good, ref_idx = match_descriptors(ref_feats.descriptors, desc, ref_feats.valid, valid)
         with stage_timer(f"{label} ransac", dev):
@@ -169,13 +178,13 @@ def _level_grid(shape, tile_size: int):
     return grid, features_per_tile(grid)
 
 
-def _calc_ref_fused(img: torch.Tensor, factors, tile_size: int, use_dog: bool):
+def _calc_ref_fused(img: torch.Tensor, factors, tile_size: int, use_dog: bool, normalize: bool):
     """Reference side: pyramid, per-level DoG and tiled features."""
     pyr = _build_pyr_levels(img, factors)
     feats = []
     for lvl in pyr:
         grid, k = _level_grid(lvl.shape, tile_size)
-        feats.append(Features(*find_features_tiled(dog_traced(lvl, use_dog), grid, k)))
+        feats.append(Features(*find_features_tiled(dog_traced(lvl, use_dog), grid, k, normalize)))
     return pyr, feats
 
 
@@ -186,7 +195,7 @@ def _tscale(scale: float, device) -> torch.Tensor:
 
 
 def _register_fused(ref_pyr, ref_feats, mov_img: torch.Tensor, factors, tile_size: int,
-                    num_iterations: int, use_dog: bool):
+                    num_iterations: int, use_dog: bool, normalize: bool):
     """The whole multi-level registration on the device (reference
     feature_registrator.py:75-116).  Returns (2x3 float32, diagnostics
     (n_lvl, num_iterations, 5)), both on the device."""
@@ -205,7 +214,7 @@ def _register_fused(ref_pyr, ref_feats, mov_img: torch.Tensor, factors, tile_siz
             grid, k = _level_grid(mov_lvl.shape, tile_size)
             tmat2, _aligned, diag = _level_align_body(
                 ref_pyr[i], ref_feats[i], mov_lvl, grid, k, tile_size, num_iterations, use_dog,
-                f"feature lvl{factor}")
+                normalize, f"feature lvl{factor}")
         hom = torch.cat([tmat2, torch.tensor([[0.0, 0.0, 1.0]], device=dev)], dim=0)
         fullscale.append(hom * _tscale(float(factor), dev))
         diags.append(diag)
@@ -232,6 +241,7 @@ class FeatureRegistrator:
         self._ref_pyr_features: List[Features] = []
         self._ref_img_pyr: List[torch.Tensor] = []
         self._factors = [8, 4, 2]
+        self._normalize = True  # the DAISY mode of the cached reference features
 
     @property
     def ref_img(self):
@@ -292,15 +302,17 @@ class FeatureRegistrator:
                 and os.environ.get("MICROALIGNER_TPU_FUSED_LEVEL", "1") != "0")
 
     def calc_ref_img_features(self):
+        self._normalize = daisy_normalize()
         if not self._fused_register_enabled():
             self._ref_img_pyr, self._factors = self._generate_img_pyr(self._on_device(self._ref_img))
-            self._ref_pyr_features = [find_features(dog(lvl, self.use_dog), self.tile_size)
+            self._ref_pyr_features = [find_features(dog(lvl, self.use_dog), self.tile_size,
+                                                    normalize=self._normalize)
                                       for lvl in self._ref_img_pyr]
             return
         self._factors = self._pyr_factors()
         with stage_timer("feature reference pyramid", self.device):
             pyr, feats = _calc_ref_fused(self._on_device(self._ref_img), tuple(self._factors),
-                                         self.tile_size, self.use_dog)
+                                         self.tile_size, self.use_dog, self._normalize)
         self._ref_img_pyr = pyr
         self._ref_pyr_features = feats
 
@@ -312,13 +324,13 @@ class FeatureRegistrator:
         check_img_dims_match(self._ref_img, self._mov_img)
         if self.num_iterations < 1:
             raise ValueError("Number of iterations cannot be less than 1")
-        if not (reuse_ref_img and self._ref_pyr_features):
+        if not (reuse_ref_img and self._ref_pyr_features and self._normalize == daisy_normalize()):
             self.calc_ref_img_features()
         if not self._fused_register_enabled():
             return self._register_per_level()
         tmat, diags = _register_fused(
             self._ref_img_pyr, self._ref_pyr_features, self._on_device(self._mov_img),
-            tuple(self._factors), self.tile_size, self.num_iterations, self.use_dog)
+            tuple(self._factors), self.tile_size, self.num_iterations, self.use_dog, self._normalize)
         fetched = torch.cat([tmat.to(torch.float64).reshape(-1), diags.reshape(-1)]).cpu().numpy()
         tmat = fetched[:6].reshape(2, 3)
         diags = fetched[6:].reshape(len(self._factors), self.num_iterations, 5)
@@ -383,7 +395,7 @@ class FeatureRegistrator:
             return mov_img, np.eye(2, 3)
         grid, k = _level_grid(mov_img.shape, self.tile_size)
         tmat, aligned, diag = _level_align_body(ref_img, ref_features, mov_img, grid, k, self.tile_size,
-                                                self.num_iterations, self.use_dog)
+                                                self.num_iterations, self.use_dog, self._normalize)
         fetched = torch.cat([tmat.to(torch.float64).reshape(-1), diag.reshape(-1)]).cpu().numpy()
         self._log_diag(fetched[6:].reshape(self.num_iterations, 5))
         return aligned, fetched[:6].reshape(2, 3)
@@ -411,9 +423,9 @@ class FeatureRegistrator:
     def _align_imgs(self, ref: Union[torch.Tensor, Features], mov_img: torch.Tensor):
         """(mov warped by the estimate, estimate): find and match the
         features, fit the matrix; the identity leaves mov as it is."""
-        ref_features = ref if isinstance(ref, Features) else find_features(dog(ref, self.use_dog),
-                                                                            self.tile_size)
-        mov_features = find_features(dog_traced(mov_img, self.use_dog), self.tile_size)
+        ref_features = ref if isinstance(ref, Features) else find_features(
+            dog(ref, self.use_dog), self.tile_size, normalize=self._normalize)
+        mov_features = find_features(dog_traced(mov_img, self.use_dog), self.tile_size, normalize=self._normalize)
         transform_mat = register_img_pair(ref_features, mov_features)
         if np.array_equal(transform_mat, np.eye(2, 3)):
             return mov_img, np.eye(2, 3)

@@ -28,6 +28,12 @@ device (``parallel.current_tile_mesh``), one grid row or one tile a call,
 as the JAX package's ``unbatched`` maps are; the whole level is one call.
 
 FAST is bit-exact across the three: coords, validity and responses agree.
+
+Each path L2-normalizes its descriptors unless
+``MICROALIGNER_TPU_DAISY_NRM=0`` asks for the reference's raw ones (cv2's
+``NRM_NONE``, :func:`daisy_normalize`).  The port reads the variable on each
+call; the JAX package reads it once a trace, so its tests clear JAX's
+caches between the two modes, and the port needs no such step.
 """
 
 from __future__ import annotations
@@ -180,10 +186,21 @@ def _per_tile_forced() -> bool:
     return os.environ.get("MICROALIGNER_TPU_FEATURE_DENSE", "auto") == "0"
 
 
-def find_features_tiled(img: torch.Tensor, grid: TileGrid, k: int, normalize: bool = True):
+def daisy_normalize() -> bool:
+    """The JAX package's ``MICROALIGNER_TPU_DAISY_NRM``: ``0`` keeps the
+    reference's raw descriptors (cv2 ``NRM_NONE``, the reference's
+    feature_detection.py:96-104); anything else, and the default,
+    normalizes them to unit length."""
+    return os.environ.get("MICROALIGNER_TPU_DAISY_NRM", "1") != "0"
+
+
+def find_features_tiled(img: torch.Tensor, grid: TileGrid, k: int, normalize: bool | None = None):
     """Tiled FAST + DAISY -> flat global (coords (N*k, 2), descriptors
     (N*k, 200), valid (N*k,), responses (N*k,)): the whole level, per tile
-    or banded, as the JAX package's ``_find_features_tiled_jit`` picks."""
+    or banded, as the JAX package's ``_find_features_tiled_jit`` picks.
+    ``normalize`` None reads :func:`daisy_normalize` on this call."""
+    if normalize is None:
+        normalize = daisy_normalize()
     if _dense_level_enabled(grid):
         coords, desc, valid, resp = _find_features_dense(img, grid, k, normalize)
     elif _per_tile_forced():
@@ -195,16 +212,16 @@ def find_features_tiled(img: torch.Tensor, grid: TileGrid, k: int, normalize: bo
     return coords.reshape(n, 2), desc.reshape(n, -1), valid.reshape(n), resp.reshape(n)
 
 
-def find_features(img, tile_size: int, device=None) -> Features:
+def find_features(img, tile_size: int, device=None, normalize: bool | None = None) -> Features:
     """Global feature set of a 2-D image (reference tile_registration.py:78-92).
     A constant image has no FAST corners, so its set comes back all invalid
     without a host check.  It runs on ``device``; by default a tensor stays
     where it is and a numpy array goes to the first CUDA device (raising
-    when there is no card)."""
+    when there is no card).  ``normalize`` as :func:`find_features_tiled`."""
     if device is not None or not isinstance(img, torch.Tensor):
         img = torch.as_tensor(img).to(resolve_device(device))
     grid = TileGrid.for_image(tuple(img.shape), tile_size, HALO)
-    return Features(*find_features_tiled(img, grid, features_per_tile(grid)))
+    return Features(*find_features_tiled(img, grid, features_per_tile(grid), normalize))
 
 
 def match_features(ref_features: Features, mov_features: Features, seed: int = 0) -> np.ndarray:

@@ -76,10 +76,12 @@ def halo_windows(canvas: torch.Tensor, origins: torch.Tensor, grid: TileGrid) ->
 
 
 def band_rows_for(grid: TileGrid, band_rows: Optional[int] = None) -> int:
-    """Interior rows per band: ``band_rows`` when given (at least 8, like the
-    JAX package's ``MICROALIGNER_TPU_FLOW_BAND_ROWS``), else the JAX
-    package's ``_band_rows``: about 22 Mpix of band, a multiple of 8, at least
-    512, the whole image when it fits."""
+    """Interior rows per band: ``band_rows`` when given, else
+    ``MICROALIGNER_TPU_FLOW_BAND_ROWS`` when set (read on each call; at
+    least 8 either way), else the JAX package's ``_band_rows``: about 22 Mpix
+    of band, a multiple of 8, at least 512, the whole image when it fits."""
+    if band_rows is None:
+        band_rows = os.environ.get("MICROALIGNER_TPU_FLOW_BAND_ROWS") or None
     if band_rows is not None:
         return max(8, int(band_rows))
     w = grid.width + 2 * grid.overlap

@@ -189,9 +189,9 @@ class OptFlowRegistrator:
 
     ``device`` is where the registration runs; numpy inputs are copied
     there.  It is the first CUDA device unless another is named, and the
-    constructor raises when there is no card.  ``band_rows`` overrides the
-    interior rows per band (the JAX package's
-    ``MICROALIGNER_TPU_FLOW_BAND_ROWS``).
+    constructor raises when there is no card.  ``band_rows`` sets the
+    interior rows per band; when it is None, the JAX package's
+    ``MICROALIGNER_TPU_FLOW_BAND_ROWS`` does, when set.
     """
 
     def __init__(self, device=None):

@@ -19,7 +19,7 @@ import os
 import sys
 import time
 
-__all__ = ["log", "stage_timer", "profiling_enabled"]
+__all__ = ["log", "debug", "stage_timer", "profiling_enabled"]
 
 _LEVELS = {"quiet": 0, "info": 1, "debug": 2}
 
@@ -34,6 +34,12 @@ def profiling_enabled() -> bool:
 
 def log(*args):
     if _level() >= 1:
+        print(*args)
+        sys.stdout.flush()
+
+
+def debug(*args):
+    if _level() >= 2:
         print(*args)
         sys.stdout.flush()
 
