@@ -9,7 +9,9 @@ Run it from the repository root; with no arguments it needs one card.  Phases, e
 
 1. build: compile ``microaligner_tpu_torch/csrc/*.cu`` with nvcc for sm_90a
    (one nvcc process a source, all at once); K1's registers, the two K3
-   kernels' registers, shared memory a block and blocks an SM, and the
+   kernels' registers, shared memory a block and blocks an SM (float32 and
+   bf16 instantiations), the registers of K2's and K4's four
+   instantiations each (R and M stored as float32 or bf16), and the
    registers and shared memory of K5's six instantiations (one a dtype),
    are printed, and a spill in any of them (or more than 64 registers for
    K1) fails the run;
@@ -39,8 +41,14 @@ Run it from the repository root; with no arguments it needs one card.  Phases, e
    K6 (one image's expansion) bit for bit against its plain version and
    K2's expansions at those slabs and at H or W of 1-3, timed against
    ``F.conv2d`` with the five folded filters, K2, and 2 x K6 plus the
-   zero-flow combine.  Each kernel's bound (bytes over 3.35 TB/s or
-   float32 operations over 67 TFLOP/s, whichever is larger) and, where one
+   zero-flow combine; the typed entries of the reduced-precision route
+   (``check_typed``: K2 and K4 over every pair of stored types of R and M,
+   K3's bf16 entry at windows 11-257, aligned and ragged widths, one-pixel
+   axes) bit for bit against their plain versions, K3 bf16 also against a
+   float64 run of its bf16 operator, each timed at the band slabs on bf16
+   R and M beside its float32 entry.  Each kernel's bound (bytes over
+   3.35 TB/s or float32 operations over 67 TFLOP/s, whichever is larger;
+   2-byte planes for the bf16 entries) and, where one
    PyTorch call computes the same function (``F.grid_sample`` for K1 and
    K5, ``F.conv2d`` for K6), that call's time;
 3. parity: a 1024^2 pair through ``OptFlowRegistrator.register_device`` on
@@ -128,13 +136,24 @@ Run it from the repository root; with no arguments it needs one card.  Phases, e
    ``init_distributed_from_env`` running ``tile_map`` and an
    ``all_reduce``, then 2 gloo ranks on the one card running (a)'s step,
    each rank's outputs bit-equal to the one-process result (every group a
-   subprocess, killed if it outlasts its timeout).
+   subprocess, killed if it outlasts its timeout);
+12. the reduced-precision route (``precision_route``,
+   ``MICROALIGNER_TPU_AGG_PRECISION=default`` set for its runs only):
+   phase 3's 1024^2 pair on the card against the port's CPU run on that
+   route (phase 3's bars); at 4096^2 and 20480^2 a register on the float32
+   and the bf16 route in turns, the bf16 flow within the JAX package's
+   hardware bars of the float32 one (mean 1e-3, max 0.05 px) and both
+   registrations below the CLI's MSE bar, with each route's time and peak
+   device memory; the 20480^2 OptFlowReg-only CLI once on the route.  Its
+   runs launch K2-K4 only through their bf16 entries; every other phase
+   runs with both variables unset.
 
-Every path of phases 4-11 runs with the kernels' launch counters set to 0
+Every path of phases 4-12 runs with the kernels' launch counters set to 0
 just before it and read just after: each kernel of the path must have
 launched and no plain version may have run.  The last lines are the card's
 name and power limit as nvidia-smi prints them, a JSON object with one entry
-per kernel, and ``{"ok": true, ...}``.  Any failed check raises and the
+per kernel and one for each bf16 entry (``K2 bf16`` ...: its launches are
+counted apart from the float32 entry's), and ``{"ok": true, ...}``.  Any failed check raises and the
 script exits non-zero.  Without a CUDA device it exits non-zero before
 printing anything.
 """
@@ -166,7 +185,12 @@ ROOT = Path(__file__).resolve().parent
 # no further from a float64 run of the plain version than the float32 plain version is
 TOL = {"K1": "0: bit-equal to its plain version", "K2": "1e-5*max|plain|+1e-6", "K3": "atol 1e-4 px", "K4": "1e-5*max|plain|+1e-6",
        "K5": "0: bit-equal to its plain version and to one K1 launch a plane",
-       "K6": "0: bit-equal to its plain version and to K2's expansions"}
+       "K6": "0: bit-equal to its plain version and to K2's expansions",
+       # the typed entries of the reduced-precision route (MICROALIGNER_TPU_AGG_PRECISION=default): K3's bf16 sums
+       # multiply two bf16 values, exact in float32, so its fused multiply-add rounds where its plain version adds
+       "K2 bf16": "0: bit-equal to its plain version", "K3 bf16": "0: bit-equal to its plain version",
+       "K4 bf16": "0: bit-equal to its plain version"}
+TYPED = ("K2 bf16", "K3 bf16", "K4 bf16")
 # NVIDIA H100 SXM: HBM3 rate and float32 rate outside the tensor cores
 H100_BYTES_PER_S, H100_F32_FLOPS = 3.35e12, 67e12
 
@@ -230,6 +254,9 @@ class Counters:
     def __init__(self):
         from microaligner_tpu_torch.ops import kernel_agg, kernel_matrices, kernel_poly, kernel_sample as ks
 
+        # the bf16 entries' launches, a part of their wrapper's
+        self.typed = {"K2 bf16": kernel_poly.poly_pair_m, "K3 bf16": kernel_agg.smooth5_solve,
+                      "K4 bf16": kernel_matrices.update_matrices}
         self.wrappers = {"K1": (ks.sample_displaced,), "K2": (kernel_poly.poly_pair_m,),
                          "K3": (kernel_agg.smooth5_solve,), "K4": (kernel_matrices.update_matrices,),
                          "K5": (ks.sample_displaced_multi, ks.sample_band_multi), "K6": (kernel_poly.poly_exp5,)}
@@ -243,20 +270,28 @@ class Counters:
             for fn in fns:
                 if hasattr(fn, "launches"):
                     fn.launches = 0
+                if hasattr(fn, "bf16_launches"):
+                    fn.bf16_launches = 0
                 if hasattr(fn, "calls"):
                     fn.calls = 0
 
-    def snapshot(self) -> dict:
-        """Launches of each kernel's wrappers and calls of its plain versions
-        (``K1 plain`` ...) so far."""
+    def _launches(self) -> dict:
         got = {k: sum(w.launches for w in fns) for k, fns in self.wrappers.items()}
+        got.update({k: fn.bf16_launches for k, fn in self.typed.items()})
+        return got
+
+    def snapshot(self) -> dict:
+        """Launches of each kernel's wrappers (``K2 bf16`` ...: of its bf16
+        entry) and calls of its plain versions (``K1 plain`` ...) so far."""
+        got = self._launches()
         got.update({k + " plain": sum(f.calls for f in fns) for k, fns in self.plains.items()})
         return got
 
     def read(self, path: str, kernels) -> dict:
-        """Launches of every kernel since ``reset``; raises unless each of
-        ``kernels`` launched and no plain version ran."""
-        launches = {k: sum(w.launches for w in fns) for k, fns in self.wrappers.items()}
+        """Launches of every kernel since ``reset`` (``K2 bf16`` ...: of its
+        bf16 entry); raises unless each of ``kernels`` launched and no plain
+        version ran."""
+        launches = self._launches()
         plain = {k: sum(f.calls for f in fns) for k, fns in self.plains.items()}
         log(f"[{path}] kernel launches {launches}; plain versions called {plain}")
         require(all(launches[k] > 0 for k in kernels), f"{path}: a kernel of the path was never launched")
@@ -299,18 +334,20 @@ def remap_rows(img, dx, dy, rows=2048):
 
 # -- phase 2 ---------------------------------------------------------------
 
-def kernel_bounds(h, w, planes=8, taps=99) -> dict:
+def kernel_bounds(h, w, planes=8, taps=99, r_bytes=4, m_bytes=4) -> dict:
     """{kernel: (bound ms, "bytes" or "operations")} at an (h, w) slab: each
     input read once and each output written once over HBM's rate, against
     the float32 operations over the non-tensor-core rate.  Operations a
     pixel are counted from each kernel's arithmetic (K3: two passes of 5
-    planes x ``taps`` multiply-adds, plus the solve)."""
+    planes x ``taps`` multiply-adds, plus the solve).  R0/R1 and M are
+    planes of ``r_bytes`` and ``m_bytes`` (2 on the bf16 route; its
+    arithmetic is float32, the conversions not counted)."""
     px, pad = h * w, (h + 2) * (w + 2)
     work = {  # (bytes, float32 operations)
         "K1": (4 * px + 8 * px + 4 * px, 17 * px),
-        "K2": (2 * 4 * pad + 15 * 4 * px, 170 * px),
-        "K3": (5 * 4 * px + 2 * 4 * px, (2 * 5 * taps * 2 + 15) * px),
-        "K4": (10 * 4 * px + 8 * px + 5 * 4 * px, 90 * px),
+        "K2": (2 * 4 * pad + (10 * r_bytes + 5 * m_bytes) * px, 170 * px),
+        "K3": (5 * m_bytes * px + 2 * 4 * px, (2 * 5 * taps * 2 + 15) * px),
+        "K4": (10 * r_bytes * px + 8 * px + 5 * m_bytes * px, 90 * px),
         "K5": (planes * 4 * px * 2 + 8 * px, (13 * planes + 4) * px),
         "K6": (4 * pad + 5 * 4 * px, 66 * px),
     }
@@ -884,6 +921,153 @@ def check_k6(dev, rng) -> dict:
     return res
 
 
+# the typed entries: every (R, M) pair of stored types the selectors give, and the one they do not
+TYPE_PAIRS = ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32),
+              (torch.float32, torch.float32))
+# K3's bf16 entry beside the main path's window of 99: (N, H, W, winsize), cropped from one real bf16 M; widths
+# on 4 elements (the vector copies) and not, H or W below the half-window, one-pixel axes
+K3_BF16_SHAPES = ((2, 12, 45, 11), (1, 515, 290, 11), (1, 300, 1001, 49), (1, 260, 1000, 49), (1, 70, 300, 257),
+                  (2, 300, 1001, 99), (1, 40, 30, 99), (1, 3, 2, 99), (1, 1, 3, 11), (3, 2, 1, 11))
+
+
+def k3_bf16_float64(m, win):
+    """fx, fy of K3's bf16 operator (the TPU operator's coefficients rounded
+    to bf16, ``kernel_agg.bf16_operator``) on the bf16 M, run in float64
+    with nothing rounded between the passes: what the bf16 route would
+    compute without its own roundings."""
+    from microaligner_tpu_torch.ops import kernel_agg
+
+    taps = kernel_agg.agg_kernel(win)
+    r = win // 2
+
+    def smooth(x, axis):
+        n = x.shape[axis]
+        table = kernel_agg._bf16_table(taps.tobytes(), n).to(x.device, torch.float64)
+        if axis == -2:
+            table = table.unsqueeze(-1)
+        xp = x.index_select(axis, torch.arange(-r, n + r, device=x.device).clamp(0, n - 1))
+        acc = torch.zeros_like(x)
+        for k in range(2 * r + 1):
+            acc += xp.narrow(axis, k, n) * table[k]
+        return acc
+
+    g11, g12, g22, h1, h2 = smooth(smooth(m.double(), -1), -2).unbind(1)
+    idet = 1.0 / (g11 * g22 - g12 * g12 + 1e-3)
+    return (g11 * h2 - g12 * h1) * idet, (g22 * h1 - g12 * h2) * idet
+
+
+def check_typed(dev, rng) -> dict:
+    """The typed entries of the reduced-precision route, bit for bit
+    against their plain versions: K2 and K4 over every pair of stored types
+    at the band slabs and the edge shapes, K3's bf16 entry there at window
+    99 and at ``K3_BF16_SHAPES``, with its row pass alone; K3 bf16 also
+    against ``k3_bf16_float64`` (its distance is the plain version's, the
+    two being equal).  Timed on the bf16 route's types (bf16 R and M) at the
+    band slabs, in the order plain, bf16 entry, float32 entry, bf16 entry,
+    float32 entry, plain, against bounds with 2-byte planes."""
+    from microaligner_tpu_torch.ops import kernel_agg as ka, kernel_matrices as km, kernel_poly as kp
+    from microaligner_tpu_torch.optflow import farneback as fb
+
+    bf, f32 = torch.bfloat16, torch.float32
+    coeffs = fb._poly_coeff_tuple(1, 1.7)
+    res = {k: {"max_abs_err": 0.0, "library_ms": None} for k in TYPED}
+
+    def bit_ok(name, label, got, want):
+        err = float((got.float() - want.float()).abs().max())
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+        require(got.dtype == want.dtype and torch.equal(got, want),
+                f"{name} {label}: not bit-equal to its plain version (err {err}, {got.dtype} {want.dtype})")
+
+    def f64(label, m, win, got):
+        diffs = [(a.double() - e).abs() for a, e in zip(got, k3_bf16_float64(m, win))]
+        mx, mean = max(float(d.max()) for d in diffs), max(float(d.mean()) for d in diffs)
+        worst = res["K3 bf16"].setdefault("f64", {"max": 0.0, "mean": 0.0})
+        worst["max"], worst["mean"] = max(worst["max"], mx), max(worst["mean"], mean)
+        log(f"[kernels] K3 bf16 {label} window {win} against float64 of its operator: max {mx:.3e} mean "
+            f"{mean:.3e} px (the plain version's, bit-equal)")
+        require(math.isfinite(mx), f"K3 bf16 {label}: non-finite flow")
+
+    for h, w, label in BAND_SHAPES + EDGE_SHAPES:
+        base = texture(rng, h + 8, w + 8, dev) * 255
+        sp0 = fb._pad_replicate1(fb._pre_smooth(base[4 : 4 + h, 4 : 4 + w][None].contiguous()))
+        sp1 = fb._pad_replicate1(fb._pre_smooth(base[3 : 3 + h, 5 : 5 + w][None].contiguous()))
+        del base
+        expansions = {}
+        for rdt, mdt in TYPE_PAIRS:
+            got = kp.poly_pair_m(sp0, sp1, coeffs, rdt, mdt)
+            want = kp.poly_pair_m_plain(sp0, sp1, coeffs, rdt, mdt)
+            for g, wv in zip(got, want):
+                bit_ok("K2 bf16", f"{label} {h}x{w} R {rdt} M {mdt}", g, wv)
+            expansions[rdt] = want[:2]
+            if (rdt, mdt) == (bf, bf):
+                m0 = want[2]
+            del got, want
+        fx, fy = ka.smooth5_solve(m0, 99)
+        for name, g, p in zip(("fx", "fy"), (fx, fy), ka.smooth5_solve_plain(m0, 99)):
+            bit_ok("K3 bf16", f"{label} {h}x{w} {name}", g, p)
+        bit_ok("K3 bf16", f"{label} {h}x{w} row pass", ka.smooth_w(m0, 99), ka.smooth_w_plain(m0, 99))
+        f64(f"{label} {h}x{w}", m0, 99, (fx, fy))
+        for rdt, mdt in TYPE_PAIRS:
+            r0, r1 = expansions[rdt]
+            bit_ok("K4 bf16", f"{label} {h}x{w} R {rdt} M {mdt}", km.update_matrices(r0, r1, fx, fy, mdt),
+                   km.update_matrices_plain(r0, r1, fx, fy, mdt))
+        log(f"[kernels] K2, K4 typed entries {label} {h}x{w}: bit-equal to their plain versions for (R, M) in "
+            f"{[(str(a)[6:], str(b)[6:]) for a, b in TYPE_PAIRS]}; K3 bf16 at window 99 and its row pass bit-equal")
+        if (h, w, label) in BAND_SHAPES:
+            (r0b, r1b), (r0f, r1f) = expansions[bf], expansions[f32]
+            m0f = km.zero_flow_matrices(r0f, r1f)
+            calls = {
+                "K2 bf16": (lambda: kp.poly_pair_m(sp0, sp1, coeffs, bf, bf), lambda: kp.poly_pair_m(sp0, sp1, coeffs),
+                            lambda: kp.poly_pair_m_plain(sp0, sp1, coeffs, bf, bf)),
+                "K3 bf16": (lambda: ka.smooth5_solve(m0, 99), lambda: ka.smooth5_solve(m0f, 99),
+                            lambda: ka.smooth5_solve_plain(m0, 99)),
+                "K4 bf16": (lambda: km.update_matrices(r0b, r1b, fx, fy, bf), lambda: km.update_matrices(r0f, r1f, fx, fy),
+                            lambda: km.update_matrices_plain(r0b, r1b, fx, fy, bf)),
+            }
+            key = "" if label.startswith("4096") else "_20k_band"
+            bounds = kernel_bounds(h, w, r_bytes=2, m_bytes=2)
+            for k, (kern, kern_f32, plain) in calls.items():
+                p1, k1, f1, k2, f2, p2 = (cuda_ms(plain, 3), cuda_ms(kern, 20), cuda_ms(kern_f32, 20),
+                                          cuda_ms(kern, 20), cuda_ms(kern_f32, 20), cuda_ms(plain, 3))
+                entry = res[k]
+                entry["ms" + key], entry["f32_entry_ms" + key], entry["plain_ms" + key] = min(k1, k2), min(f1, f2), min(p1, p2)
+                entry["bound_ms" + key], entry["bound_by" + key] = bounds[k.split()[0]]
+                log(f"[kernels] {k} {label} {h}x{w}: kernel {entry['ms' + key]:.4f} ms "
+                    f"({100 * entry['bound_ms' + key] / entry['ms' + key]:.0f}% of its {entry['bound_ms' + key]:.4f} ms "
+                    f"bound, {entry['bound_by' + key]}), float32 entry {entry['f32_entry_ms' + key]:.4f} ms, plain "
+                    f"{entry['plain_ms' + key]:.3f} ms")
+            del r0b, r1b, r0f, r1f, m0f, calls
+        del sp0, sp1, expansions, m0, fx, fy
+    # K3's bf16 entry beside window 99, from one real M
+    n, h, w = 3, 708, 1009
+    base = texture(rng, h + 8, w + 8, dev) * 255
+    scale = torch.tensor([1.0, 0.6, 0.3], device=dev).view(n, 1, 1)
+    mov = (base[4 : 4 + h, 4 : 4 + w][None] * scale).contiguous()
+    ref = (base[3 : 3 + h, 5 : 5 + w][None] * scale).contiguous()
+    m_all = kp.poly_pair_m_plain(fb._pad_replicate1(fb._pre_smooth(mov)), fb._pad_replicate1(fb._pre_smooth(ref)),
+                                 coeffs, bf, bf)[2]
+    for n, h, w, win in K3_BF16_SHAPES:
+        m = m_all[:n, :, :h, :w].contiguous()
+        got = ka.smooth5_solve(m, win)
+        for g, p in zip(got, ka.smooth5_solve_plain(m, win)):
+            bit_ok("K3 bf16", f"{n}x{h}x{w} window {win}", g, p)
+        bit_ok("K3 bf16", f"{n}x{h}x{w} window {win} row pass", ka.smooth_w(m, win), ka.smooth_w_plain(m, win))
+        f64(f"{n}x{h}x{w}", m, win, got)
+    for bad in (lambda: kp.poly_pair_m(torch.zeros((1, 6, 6), device=dev), torch.zeros((1, 6, 6), device=dev),
+                                       coeffs, torch.float16),
+                lambda: km.update_matrices(torch.zeros((1, 5, 4, 4), device=dev, dtype=bf),
+                                           torch.zeros((1, 5, 4, 4), device=dev), torch.zeros((1, 4, 4), device=dev),
+                                           torch.zeros((1, 4, 4), device=dev)),
+                lambda: ka.smooth5_solve(torch.zeros((1, 5, 8, 8), device=dev, dtype=torch.float16), 11)):
+        try:
+            bad()
+        except (TypeError, ValueError):
+            pass
+        else:
+            raise CheckFailed("a typed wrapper accepted a dtype its kernels do not take")
+    return res
+
+
 # -- phase 3 ---------------------------------------------------------------
 
 def parity_run(dev, rng, n=1024, label="parity", counters: "Counters | None" = None, kernels=()) -> dict:
@@ -1385,10 +1569,11 @@ def cli_4096(dev, planes, counters: Counters, work: Path) -> dict:
     return res
 
 
-def cli_20480(dev, rng, counters: Counters, n=20480) -> dict:
+def cli_20480(dev, rng, counters: Counters, n=20480, path="cli_20480",
+              kernels=("K1", "K2", "K3", "K4", "K5")) -> dict:
     """Config 5b's data shape (``bench.py::bench_20k_cli``): a 2-cycle x
     2-channel x 1-z u16 CycleStack through the CLI, in a temporary
-    directory deleted afterwards."""
+    directory deleted afterwards; each of ``kernels`` must launch."""
     work = Path(tempfile.mkdtemp(prefix="ma_chip_smoke_20k_"))
     try:
         free = shutil.disk_usage(work).free
@@ -1415,12 +1600,12 @@ def cli_20480(dev, rng, counters: Counters, n=20480) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         counters.reset()
         wall, stages = run_cli_in_process(work / "cfg.yaml", dev)
-        launches = counters.read("cli_20480", ("K1", "K2", "K3", "K4", "K5"))
+        launches = counters.read(path, kernels)
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         pinned = torch.cuda.host_memory_stats().get("allocated_bytes.peak", 0)
         margin = max(64, n // 40)  # 512 px at 20480^2, as bench.py's config 5b
         res = check_stage_output(work / "out" / "optflow_reg_result_stack.tif", planes, planes[0], margin,
-                                 "cli 20480", dev, mse_bar=0.25)
+                                 path, dev, mse_bar=0.25)
         res.update(wall_s=wall, stages_s=stages, peak_gib=peak, pinned_host_bytes=pinned,
                    launches=launches)
         log(f"[cli] {n}^2 CLI in process {wall:.2f} s (stage timers on), peak device memory {peak:.2f} GiB, "
@@ -1768,7 +1953,8 @@ def auto_feature_pass(dev, rng, counters: "Counters", h=4096) -> dict:
 # -- phase 10 --------------------------------------------------------------
 
 ROUTE_VARIABLES = ("FLOW_DENSE", "FLOW_TILE_BATCH", "WHOLE_REGISTER", "CARRY_LEVEL", "FUSED_REGISTER",
-                   "FUSED_LEVEL", "FEATURE_DENSE", "FEATURE_DENSE_MAX_MPIX", "DAISY_NRM", "FLOW_BAND_ROWS")
+                   "FUSED_LEVEL", "FEATURE_DENSE", "FEATURE_DENSE_MAX_MPIX", "DAISY_NRM", "FLOW_BAND_ROWS",
+                   "AGG_PRECISION", "R_BF16")
 # the per-tile feature path's timed FeatureReg run: the largest plane the repo runs
 FEATURE_PER_TILE_N = 20480
 
@@ -2199,6 +2385,109 @@ def alternate_routes(dev, rng, counters: "Counters", stack_planes) -> dict:
             "routes_strict": routes_strict(dev, rng, counters)}
 
 
+# -- phase 12 --------------------------------------------------------------
+
+# the JAX package's bars for its bf16 route on its own hardware (microaligner_tpu/optflow/farneback.py:549-553)
+PRECISION_FLOW_MEAN_PX, PRECISION_FLOW_MAX_PX = 1e-3, 0.05
+
+
+def typed_only(path: str, launches: dict) -> None:
+    """Raise unless every launch of K2, K3 and K4 on ``path`` was of its
+    bf16 entry, and each launched."""
+    for k in TYPED:
+        base = k.split()[0]
+        require(launches[k] > 0 and launches[k] == launches[base],
+                f"{path}: {base} launched {launches[base]} times, its bf16 entry {launches[k]}")
+
+
+def precision_registers(dev, rng, counters: "Counters", n: int) -> dict:
+    """A u8 pair moved by ``displacement()`` registered at the main path's
+    settings on the float32 and the bf16 route in turns (f32, bf16, bf16,
+    f32), each warped by ``Warper.warp_device``: the bf16 flow within the
+    JAX package's hardware bars of the float32 one, both registrations'
+    interior MSE below a quarter of the unregistered, each route's time and
+    peak device memory beyond the inputs; the bf16 runs launch only the
+    typed entries of K2-K4 and no plain version."""
+    from microaligner_tpu_torch.ops.filters import minmax_normalize_u8
+    from microaligner_tpu_torch.optflow.registrator import OptFlowRegistrator
+    from microaligner_tpu_torch.optflow.warper import Warper
+
+    base = texture(rng, n, n, dev)
+    dx, dy = displacement(n, n, 3.0, 0.3, dev, wavelength=2000.0 if n > 4096 else 700.0)
+    ref, mov = minmax_normalize_u8(base), minmax_normalize_u8(remap_rows(base, dx, dy))
+    del base
+    margin = max(200, n // 40)
+    flows, secs, peaks, mse, launches = {}, {"f32": [], "bf16": []}, {}, {}, {}
+    for route in ("f32", "bf16", "bf16", "f32"):
+        reg = OptFlowRegistrator(device=dev)
+        reg.num_pyr_lvl, reg.num_iterations, reg.tile_size, reg.overlap = 3, 3, 1000, 100
+        reg.use_full_res_img, reg.use_dog = True, False
+        reg.ref_img, reg.mov_img = ref, mov
+        with routes(**({"AGG_PRECISION": "default"} if route == "bf16" else {})):
+            counters.reset()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            flow = reg.register_device()
+            torch.cuda.synchronize()
+            secs[route].append(time.perf_counter() - t0)
+            peaks[route] = (torch.cuda.max_memory_allocated(dev) - held) / 2**30
+            got = counters.read(f"precision {n}^2 {route}", ("K1", "K2", "K3", "K4", "K5"))
+        if route == "bf16":
+            typed_only(f"precision {n}^2", got)
+        else:
+            require(not any(got[k] for k in TYPED), f"precision {n}^2 f32: a bf16 entry launched {got}")
+        launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+        if route not in flows:
+            require(flow.shape == (n, n, 2) and bool(torch.isfinite(flow).all()), f"precision {n}^2 {route}: flow")
+            warper = Warper(device=dev)
+            warper.tile_size, warper.overlap = 1000, 100
+            warper.image, warper.flow = mov, flow
+            mse[route] = interior_mse(warper.warp_device(), ref, margin)
+            flows[route] = flow
+        else:
+            require(torch.equal(flow, flows[route]), f"precision {n}^2 {route}: the second run's flow differs")
+        del flow
+    err = (flows["bf16"] - flows["f32"]).abs()
+    mean, mx = float(err.mean()), float(err.max())
+    truth = {k: interior_err(f, dx, dy, margin) for k, f in flows.items()}
+    before = interior_mse(mov, ref, margin)
+    del err, flows
+    res = {"register_s": secs, "peak_gib": peaks, "flow_diff_mean_px": mean, "flow_diff_max_px": mx,
+           "truth_err_px": truth, "mse_before": before, "mse_after": mse, "launches": launches}
+    log(f"[precision] {n}^2 register_device, f32 / bf16 / bf16 / f32: f32 {secs['f32']} s, bf16 {secs['bf16']} s; "
+        f"peak device memory beyond the inputs {peaks} GiB; bf16 flow against f32 mean {mean:.3e} max {mx:.3e} px; "
+        f"interior flow error against the truth {truth} px; mse {before:.1f} -> {mse}")
+    require(mean < PRECISION_FLOW_MEAN_PX and mx < PRECISION_FLOW_MAX_PX,
+            f"precision {n}^2: bf16 flow against f32 mean {mean} max {mx} px")
+    require(all(v < 0.25 * before for v in mse.values()), f"precision {n}^2: registered mse {mse}, before {before}")
+    return res
+
+
+def precision_route(dev, rng, counters: "Counters") -> dict:
+    """Phase 12: Farneback's reduced-precision route
+    (``MICROALIGNER_TPU_AGG_PRECISION=default``): phase 3's 1024^2 pair on
+    the card against the port's CPU run on that route (phase 3's bars),
+    ``precision_registers`` at 4096^2 and 20480^2, and the 20480^2
+    OptFlowReg-only CLI once on the route (the CLI's MSE bar).  Every run
+    launches only the typed entries of K2-K4 and no plain version."""
+    res = {}
+    with routes(AGG_PRECISION="default"):
+        res["parity_1024"] = parity_run(dev, rng, label="precision parity", counters=counters,
+                                        kernels=("K1", "K5") + TYPED)
+    typed_only("precision parity", res["parity_1024"]["launches"])
+    for n in (4096, 20480):
+        res[f"register_{n}"] = precision_registers(dev, rng, counters, n)
+    torch.cuda.empty_cache()
+    with routes(AGG_PRECISION="default"):
+        res["cli_20480"] = cli_20480(dev, rng, counters, path="precision cli_20480",
+                                     kernels=("K1", "K5") + TYPED)
+    typed_only("precision cli_20480", res["cli_20480"]["launches"])
+    res["launches"] = {k: sum(r["launches"].get(k, 0) for r in res.values()) for k in res["cli_20480"]["launches"]}
+    return res
+
+
 # -- phase 11 --------------------------------------------------------------
 
 # the sharded register step at config 2 of the JAX package's bench
@@ -2596,10 +2885,20 @@ def mesh_cards() -> int:
     return 0
 
 
+# the Itanium mangling of a stored type among the template arguments of K2, K3 and K4: a second
+# __nv_bfloat16 is a substitution (S_, S0_, ...), the only type one can stand for there
+_MANGLED_TYPE = r"(f|13__nv_bfloat16|S[0-9A-Z]*_)"
+
+
+def mangled_type(code: str) -> str:
+    return "f32" if code == "f" else "bf16"
+
+
 def k3_build_lines(ptxas: str) -> dict:
     """Registers, spill bytes, shared memory a block and blocks an SM of the
-    two K3 kernels from ``nvcc -Xptxas -v``'s output (empty when the library
-    was already built); raises if either kernel spills."""
+    two K3 kernels' float32 and bf16 instantiations from ``nvcc -Xptxas
+    -v``'s output (empty when the library was already built); raises if one
+    spills."""
     from microaligner_tpu_torch.ops import kernel_agg
 
     out = {}
@@ -2607,23 +2906,49 @@ def k3_build_lines(ptxas: str) -> dict:
     props = torch.cuda.get_device_properties(0)
     threads = kernel_agg.BLOCK_THREADS
     for i, line in enumerate(lines):
-        found = re.search(r"Compiling entry function '\w*?(smooth_rows_kernel|smooth_cols_solve_kernel)", line)
+        found = re.search(r"Compiling entry function '\w*?(smooth_rows_kernel|smooth_cols_solve_kernel)I"
+                          + _MANGLED_TYPE + "E", line)
         if not found:
             continue
+        dtype = mangled_type(found.group(2))
+        name = found.group(1) + ("" if dtype == "f32" else " bf16")
         text = " ".join(lines[i + 1 : i + 4])
         spills = [int(v) for v in re.findall(r"(\d+) bytes spill", text)]
         regs = int(re.search(r"Used (\d+) registers", text).group(1))
-        smem = kernel_agg.block_shared_bytes(found.group(1), 99 // 2)
+        smem = kernel_agg.block_shared_bytes(found.group(1), 99 // 2, 4 if dtype == "f32" else 2)
         blocks = min(getattr(props, "regs_per_multiprocessor", 65536) // (regs * threads),
                      getattr(props, "shared_memory_per_multiprocessor", 233472) // (smem + 1024),
                      props.max_threads_per_multi_processor // threads)
-        out[found.group(1)] = {"registers": regs, "spill_bytes": sum(spills), "shared_bytes_window_99": smem,
-                               "blocks_per_sm": blocks}
-        log(f"[build] K3 {found.group(1)}: {regs} registers, {sum(spills)} spill bytes, {threads} threads and "
+        out[name] = {"registers": regs, "spill_bytes": sum(spills), "shared_bytes_window_99": smem,
+                     "blocks_per_sm": blocks}
+        log(f"[build] K3 {name}: {regs} registers, {sum(spills)} spill bytes, {threads} threads and "
             f"{smem} B of shared memory a block at window 99, {blocks} block(s) an SM")
-        require(len(spills) == 2 and sum(spills) == 0, f"K3 {found.group(1)} spills: {text}")
+        require(len(spills) == 2 and sum(spills) == 0, f"K3 {name} spills: {text}")
     if ptxas:
-        require(len(out) == 2, f"ptxas named {sorted(out)} of the two K3 kernels")
+        require(len(out) == 4, f"ptxas named {sorted(out)} of the two K3 kernels' two instantiations")
+    return out
+
+
+def typed_build_lines(ptxas: str) -> dict:
+    """Registers and spill bytes of K2's and K4's four instantiations each
+    (R and M stored as float or bf16) from ``nvcc -Xptxas -v``'s output
+    (empty when the library was already built); raises if one spills."""
+    out = {}
+    lines = ptxas.splitlines()
+    for i, line in enumerate(lines):
+        found = re.search(r"Compiling entry function '\w*?(poly_pair_m_kernel|update_matrices_kernel)I"
+                          + _MANGLED_TYPE + _MANGLED_TYPE + "E", line)
+        if not found:
+            continue
+        name = f"{'K2' if found.group(1).startswith('poly') else 'K4'} R {mangled_type(found.group(2))} " \
+               f"M {mangled_type(found.group(3))}"
+        text = " ".join(lines[i + 1 : i + 4])
+        spills = [int(v) for v in re.findall(r"(\d+) bytes spill", text)]
+        out[name] = {"registers": int(re.search(r"Used (\d+) registers", text).group(1)), "spill_bytes": sum(spills)}
+        log(f"[build] {name}: {out[name]['registers']} registers, {sum(spills)} spill bytes")
+        require(len(spills) == 2 and sum(spills) == 0, f"{name} spills: {text}")
+    if ptxas:
+        require(len(out) == 8, f"ptxas named {len(out)} of K2's and K4's 8 instantiations: {sorted(out)}")
     return out
 
 
@@ -2699,11 +3024,14 @@ def main():
             log(f"[build] {line.strip()}")
     report["k1_build"] = k1_build_lines(ptxas)
     report["k3_build"] = k3_build_lines(ptxas)
+    report["typed_build"] = typed_build_lines(ptxas)
     report["k5_build"] = k5_build_lines(ptxas)
 
     kernels = check_kernels(dev, rng)
     kernels["K5"] = check_k5(dev, rng)
     kernels["K6"] = check_k6(dev, rng)
+    # a generator of its own: the phases after it draw the same data as before the typed entries came
+    kernels.update(check_typed(dev, np.random.default_rng(20261017)))
     report["parity"] = parity_run(dev, rng)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2728,6 +3056,7 @@ def main():
     report["chained_20480"] = chained_cli(dev, rng, counters, 20480, big=True)
     report["auto"] = auto_feature_pass(dev, rng, counters)
     report.update(mesh_phase(dev, rng, counters))
+    report["precision_route"] = precision_route(dev, rng, counters)
 
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start
@@ -2740,12 +3069,17 @@ def main():
                "K3": ("smooth5_solve", "agg.cu", "microaligner_tpu/ops/pallas_agg.py:160"),
                "K4": ("update_matrices", "matrices.cu", "microaligner_tpu/ops/pallas_matrices.py:63"),
                "K5": ("sample_band_multi", "sample.cu", "microaligner_tpu/ops/pallas_sample.py:183"),
-               "K6": ("poly_exp5", "poly.cu", "microaligner_tpu/ops/pallas_poly.py:83")}
+               "K6": ("poly_exp5", "poly.cu", "microaligner_tpu/ops/pallas_poly.py:83"),
+               "K2 bf16": ("poly_pair_m[bf16]", "poly.cu", "microaligner_tpu/ops/pallas_poly.py:172"),
+               "K3 bf16": ("smooth5_solve[bf16]", "agg.cu", "microaligner_tpu/ops/pallas_agg.py:160"),
+               "K4 bf16": ("update_matrices[bf16]", "matrices.cu", "microaligner_tpu/ops/pallas_matrices.py:63")}
     # each path's launches, counted from 0 just before it and read just after
     paths = ("main", "unpaired", "zstack", "cli_4096", "routes_parity", "routes_per_tile_20480", "routes_drivers",
              "routes_cli_4096", "routes_feature", "routes_strict", "cli_20480", "feature", "chained_4096", "chained_20480", "auto",
-             "mesh_step", "mesh_step_parity", "mesh_engines", "mesh_groups")
+             "mesh_step", "mesh_step_parity", "mesh_engines", "mesh_groups", "precision_route")
     launches = {k: sum(report[path]["launches"].get(k, 0) for path in paths) for k in sources}
+    for k in TYPED:  # a wrapper's launches less its bf16 entry's are its float32 entry's
+        launches[k.split()[0]] -= launches[k]
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"microaligner_tpu_torch/csrc/{src}",
          "replaces": replaces, "launches": launches[k],

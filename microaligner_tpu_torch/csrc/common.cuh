@@ -7,6 +7,7 @@
 // as their plain versions, and agree with them bit for bit.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -15,6 +16,19 @@ namespace ma {
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+
+// A stored value as float (exact), and a float stored as T: bf16 rounds to
+// nearest even, as tensor.to(torch.bfloat16) does.
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 // floor(v) as an int, clamped so that a huge or non-finite displacement
 // cannot overflow the pixel index it is added to (such taps land outside the

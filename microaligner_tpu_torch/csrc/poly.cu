@@ -6,7 +6,11 @@
 // body `_pair_kernel`, moments in `_moments5`).  Inputs are the pre-smoothed
 // images padded by one replicated pixel, (N, H+2, W+2); outputs are
 // R0, R1 = [b_y, b_x, A_yy, A_xx, A_xy] and M0 = [G11, G12, G22, h1, h2],
-// each (N, 5, H, W) f32.
+// each (N, 5, H, W): R0 and R1 stored as TR and M0 as TM (float or bf16, the
+// TPU kernel's `r_dtype` and `m_dtype`).  The expansion and the combine stay
+// float in registers; M0 is combined from the values before they are rounded
+// to TR, and each output is rounded to nearest even on store, so every
+// instantiation equals the plain version bit for bit.
 //
 // Bound on the H100: bytes (2 planes read, 15 written, ~40 flops a pixel).
 // One thread per output pixel reads its 3x3 neighbourhood of both inputs;
@@ -52,10 +56,11 @@ __device__ __forceinline__ void moments5(const float* __restrict__ p, int64_t st
   out[4] = ma::mul(b6, c.ig55);
 }
 
+template <typename TR, typename TM>
 __global__ void poly_pair_m_kernel(const float* __restrict__ sp0,
                                    const float* __restrict__ sp1,
-                                   float* __restrict__ r0, float* __restrict__ r1,
-                                   float* __restrict__ m, int h, int w, PolyCoeffs c) {
+                                   TR* __restrict__ r0, TR* __restrict__ r1,
+                                   TM* __restrict__ m, int h, int w, PolyCoeffs c) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= w || y >= h) return;
@@ -71,8 +76,8 @@ __global__ void poly_pair_m_kernel(const float* __restrict__ sp0,
   const int64_t o = static_cast<int64_t>(n) * 5 * hw + static_cast<int64_t>(y) * w + x;
 #pragma unroll
   for (int ch = 0; ch < 5; ++ch) {
-    r0[o + ch * hw] = e0[ch];
-    r1[o + ch * hw] = e1[ch];
+    r0[o + ch * hw] = ma::narrow<TR>(e0[ch]);
+    r1[o + ch * hw] = ma::narrow<TR>(e1[ch]);
   }
   // zero flow: the other expansion is sampled at p itself, and the 2x2
   // stencil is inside unless p sits on the last row or column
@@ -81,7 +86,7 @@ __global__ void poly_pair_m_kernel(const float* __restrict__ sp0,
   float mm[5];
   ma::combine_matrices(e0, e1, inb, 0.0f, 0.0f, scale, mm);
 #pragma unroll
-  for (int ch = 0; ch < 5; ++ch) m[o + ch * hw] = mm[ch];
+  for (int ch = 0; ch < 5; ++ch) m[o + ch * hw] = ma::narrow<TM>(mm[ch]);
 }
 
 // K6: the expansion of one image, no M0.
@@ -122,13 +127,30 @@ extern "C" int ma_poly_exp5(const float* sp, float* r, int n, int h, int w, floa
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int ma_poly_pair_m(const float* sp0, const float* sp1, float* r0, float* r1,
-                              float* m, int n, int h, int w, float g0, float g1, float xg1,
-                              float xxg1, float ig11, float ig03, float ig33, float ig55,
-                              cudaStream_t stream) {
-  const PolyCoeffs c{g0, g1, xg1, xxg1, ig11, ig03, ig33, ig55};
+namespace {
+
+template <typename TR, typename TM>
+int launch_pair(const float* sp0, const float* sp1, void* r0, void* r1, void* m, int n, int h,
+                int w, const PolyCoeffs& c, cudaStream_t stream) {
   const dim3 block(32, 8);
   const dim3 grid((w + block.x - 1) / block.x, (h + block.y - 1) / block.y, n);
-  poly_pair_m_kernel<<<grid, block, 0, stream>>>(sp0, sp1, r0, r1, m, h, w, c);
+  poly_pair_m_kernel<TR, TM><<<grid, block, 0, stream>>>(
+      sp0, sp1, static_cast<TR*>(r0), static_cast<TR*>(r1), static_cast<TM*>(m), h, w, c);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// r_bf16 / m_bf16: R0 and R1, and M0, are stored as bf16 (1) or float (0).
+extern "C" int ma_poly_pair_m(const float* sp0, const float* sp1, void* r0, void* r1, void* m,
+                              int n, int h, int w, float g0, float g1, float xg1, float xxg1,
+                              float ig11, float ig03, float ig33, float ig55, int r_bf16,
+                              int m_bf16, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  const PolyCoeffs c{g0, g1, xg1, xxg1, ig11, ig03, ig33, ig55};
+  if (r_bf16)
+    return m_bf16 ? launch_pair<bf16, bf16>(sp0, sp1, r0, r1, m, n, h, w, c, stream)
+                  : launch_pair<bf16, float>(sp0, sp1, r0, r1, m, n, h, w, c, stream);
+  return m_bf16 ? launch_pair<float, bf16>(sp0, sp1, r0, r1, m, n, h, w, c, stream)
+                : launch_pair<float, float>(sp0, sp1, r0, r1, m, n, h, w, c, stream);
 }

@@ -8,8 +8,11 @@ points, 8 orientation bins, bilinear interpolation, no keypoint orientation)
 Pipeline: a slight pre-smooth, x/y gradients, 8 rectified orientation
 layers, incrementally smoothed cubes (one sigma a ring), then bilinear
 gathers at the 25 grid points around each keypoint.  The ring blurs are
-float32 operator products with TF32 off (``ops/filters.py::gaussian_blur_mxu``);
-the JAX package's bf16 operands are TPU-only.
+float32 operator products with TF32 off (``ops/filters.py::gaussian_blur_mxu``).
+The JAX package asks for DEFAULT precision for them on every backend
+(bf16 operands on its TPU; XLA's CPU multiplies in float32) unless
+``MICROALIGNER_TPU_DAISY_EXACT=1``; the port keeps float32 on the card too
+(a stated departure: that variable is not ported yet).
 """
 
 from __future__ import annotations

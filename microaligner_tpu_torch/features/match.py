@@ -3,9 +3,12 @@
 PyTorch counterpart of ``microaligner_tpu/features/match.py``, which
 replaces ``cv.FlannBasedMatcher.knnMatch(des_mov, des_ref, k=2)`` and the
 0.5 ratio test with an exact top-2 over squared distances
-|q|^2 + |t|^2 - 2 q.t, in float32 with TF32 off (the JAX package's bf16
-cross term is TPU-only).  FLANN reports unsquared distances, so the ratio
-0.5 compares ``d1 < 0.25 * d2`` on the squared ones.
+|q|^2 + |t|^2 - 2 q.t, in float32 with TF32 off.  The JAX package gives
+the cross term bf16 operands on every backend but the CPU, unless
+``MICROALIGNER_TPU_MATCH_F32=1``; the port keeps float32 on the card too (a
+stated departure: that variable is not ported yet).  FLANN reports
+unsquared distances, so the ratio 0.5 compares ``d1 < 0.25 * d2`` on the
+squared ones.
 
 The CPU's BLAS and cuBLAS sum the float32 cross term in different orders,
 so a query whose ratio test lies within float32 rounding of its threshold

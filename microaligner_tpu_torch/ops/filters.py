@@ -13,7 +13,9 @@ DAISY's long blurs (ksize 29..63) are products with blur operators instead
 (:func:`gaussian_blur_mxu`): a dense (size, size) operator for short axes
 and one shared Toeplitz band over 512-row blocks for long ones, with the
 REFLECT_101 fold inside the operators.  The JAX package leaves these to XLA
-outside any Pallas kernel (bf16 operands on a TPU, float32 elsewhere).
+outside any Pallas kernel and asks for DEFAULT precision on every backend
+(bf16 operands on a TPU, float32 products on the CPU), unless
+``MICROALIGNER_TPU_DAISY_EXACT=1``.
 Here they are float32 products with TF32 off (:func:`ieee_float32`); the
 CPU's BLAS and cuBLAS sum them in different orders, so the two devices'
 blurs differ in their last bits.

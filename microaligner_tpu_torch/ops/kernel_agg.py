@@ -31,6 +31,19 @@ twice, so the kernel agrees with :func:`smooth5_solve_plain` to a bar
 it is not bit-equal to it.  The tap table limits r to 128, checked here.
 The row pass alone is :func:`smooth_w`, the counterpart of
 ``pallas_smooth_w``.
+
+The bfloat16 entry.  Where M is bfloat16 (Farneback's reduced-precision
+route, ``MICROALIGNER_TPU_AGG_PRECISION=default``), both functions compute
+what the TPU kernel computes for bf16 M: its banded operator's coefficients
+rounded to bf16, products summed in float32, pass 1's result stored in bf16
+(``smooth_w`` returns it), pass 2 summed from those values and the solve in
+float32.  The TPU operator folds the taps that the replicate border sends
+to an edge pixel into one coefficient (``_banded_smooth_matrix``: summed in
+float64, rounded to float32, then to bf16); the plain version and the kernel
+apply that coefficient to the edge pixel, not the rounded taps one by one
+(:func:`bf16_operator`).  A product of two bf16 values is exact in float32,
+so the kernel's fused multiply-add rounds where the plain version's add
+does, and the bf16 kernels equal their plain versions bit for bit.
 """
 
 from __future__ import annotations
@@ -41,9 +54,11 @@ import numpy as np
 import torch
 
 from microaligner_tpu_torch.ops import cuda_lib
+from microaligner_tpu_torch.ops.kernel_matrices import STORED_DTYPES
 
 __all__ = [
     "agg_kernel",
+    "bf16_operator",
     "block_shared_bytes",
     "smooth_axis_plain",
     "smooth5_solve",
@@ -64,19 +79,21 @@ BLOCK_THREADS = 512
 _STEP_TAPS = {"smooth_rows_kernel": 20, "smooth_cols_solve_kernel": 11}
 
 
-def block_shared_bytes(kernel: str, r: int) -> int:
+def block_shared_bytes(kernel: str, r: int, itemsize: int = 4) -> int:
     """Dynamic shared memory a block of ``smooth_rows_kernel`` or
     ``smooth_cols_solve_kernel`` takes at half-window ``r``: two tiles of
-    256 + 2r lines (the taps rounded up to whole steps) by 32 floats.  The
-    row pass rounds its row stride up to 4 mod 8 floats."""
+    256 + 2r lines (the taps rounded up to whole steps) by 32 elements of
+    ``itemsize`` bytes (4 for float32, 2 for bfloat16).  The row pass rounds
+    its row stride up to 4 mod 8 elements.  The column pass's bfloat16 entry
+    adds a float32 table of one tile's sums near the column's ends."""
     step = _STEP_TAPS[kernel]
     ntp = -(-(2 * r + 1) // step) * step
     if kernel == "smooth_rows_kernel":
         lines = -(-(_TILE[1] + ntp) // 4) * 4
         lines += 4 if lines % 8 == 0 else 0
-    else:
-        lines = _TILE[1] + ntp - 1
-    return 4 * 2 * _TILE[0] * lines
+        return itemsize * 2 * _TILE[0] * lines
+    table = 4 * _TILE[0] * _TILE[1] if itemsize == 2 else 0
+    return itemsize * 2 * _TILE[0] * (_TILE[1] + ntp - 1) + table
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,16 +107,79 @@ def agg_kernel(winsize: int) -> np.ndarray:
     return k.astype(np.float32)
 
 
+def _to_bf16(values) -> np.ndarray:
+    """float64 values rounded to float32, then to bfloat16 (to nearest
+    even), returned as float32."""
+    f32 = torch.from_numpy(np.asarray(values, dtype=np.float64).astype(np.float32))
+    return f32.to(torch.bfloat16).to(torch.float32).numpy()
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_operator(tap_bytes: bytes):
+    taps = np.frombuffer(tap_bytes, dtype=np.float32)
+    r = (len(taps) - 1) // 2
+    k = taps.astype(np.float64)
+    # float64 sums in ascending tap order, one add after another, as np.add.at folds them
+    lead = np.cumsum(k)[r::-1]
+    trail = [np.cumsum(k[r + d :])[-1] for d in range(r + 1)]
+    return _to_bf16(taps), _to_bf16(lead), _to_bf16(trail), float(_to_bf16(np.cumsum(k)[-1:])[0])
+
+
+def bf16_operator(taps: np.ndarray):
+    """The bf16 route's coefficients for the 2r+1 float32 ``taps``:
+    ``(taps, lead, trail, total)``, each rounded to bf16 (values as float32).
+    ``taps`` apply where a tap reads a pixel of the axis that no other tap
+    of the same output reads; ``lead[i]`` is what output i <= r applies to
+    pixel 0 (the taps 0..r-i, which the replicate border sends there),
+    ``trail[d]`` what output n-1-d applies to pixel n-1, and ``total`` what
+    the one output of a one-pixel axis applies to its pixel.  Each is the
+    TPU operator's entry (``microaligner_tpu/optflow/farneback.py::
+    _banded_smooth_matrix``): the float32 taps summed in float64, then
+    rounded to float32 and to bf16."""
+    return _bf16_operator(np.ascontiguousarray(taps, dtype=np.float32).tobytes())
+
+
+@functools.lru_cache(maxsize=16)  # (2r+1) x n floats each: 8 MB at n = 20680, window 99
+def _bf16_table(tap_bytes: bytes, n: int) -> torch.Tensor:
+    """(2r+1, n) coefficients: entry [k, i] is what output i applies to the
+    tap k reads, pixel clamp(i + k - r) (see :func:`bf16_operator`)."""
+    taps, lead, trail, total = _bf16_operator(tap_bytes)
+    r = (len(taps) - 1) // 2
+    k = np.arange(2 * r + 1).reshape(-1, 1)
+    i = np.arange(n).reshape(1, -1)
+    j = i + k - r  # the pixel, before the clamp
+    table = np.where((j >= 0) & (j < n), np.broadcast_to(taps.reshape(-1, 1), j.shape), 0.0)
+    table = np.where(j == n - 1, trail[np.clip(n - 1 - i, 0, r)], table)
+    table = np.where(j == 0, lead[np.clip(i, 0, r)], table)
+    if n == 1:
+        table = np.where(j == 0, total, table)
+    return torch.from_numpy(table.astype(np.float32))
+
+
 def smooth_axis_plain(x: torch.Tensor, taps: np.ndarray, axis: int) -> torch.Tensor:
     """Replicate-border correlation of ``x`` with ``taps`` along ``axis``
     (-1 or -2): out[i] = sum_k taps[k] x[clamp(i + k - r)], summed in
-    ascending k with a separate multiply and add per tap."""
+    ascending k with a separate multiply and add per tap.
+
+    A bfloat16 ``x`` takes the bf16 route: it is widened to float32 and each
+    tap k of output i applies the bf16 coefficient of the TPU operator
+    (:func:`bf16_operator`; a tap outside the axis applies 0 and the edge
+    pixel's tap the folded sum); the products are exact and the float32 sums
+    are returned unrounded."""
     r = (len(taps) - 1) // 2
     n = x.shape[axis]
     idx = torch.arange(-r, n + r, device=x.device).clamp(0, n - 1)
+    if x.dtype == torch.bfloat16:
+        table = _bf16_table(np.ascontiguousarray(taps, dtype=np.float32).tobytes(), n).to(x.device)
+        if axis == -2:
+            table = table.unsqueeze(-1)
+        coeffs = list(table)
+        x = x.float()
+    else:
+        coeffs = taps.tolist()
     xp = x.index_select(axis, idx)
     acc = None
-    for k, wk in enumerate(taps.tolist()):
+    for k, wk in enumerate(coeffs):
         t = xp.narrow(axis, k, n) * wk
         if acc is None:
             acc = t
@@ -109,10 +189,13 @@ def smooth_axis_plain(x: torch.Tensor, taps: np.ndarray, axis: int) -> torch.Ten
 
 
 def smooth5_solve_plain(M: torch.Tensor, winsize: int):
-    """Plain PyTorch version of K3: (N, 5, H, W) -> (fx, fy), each (N, H, W)."""
+    """Plain PyTorch version of K3: (N, 5, H, W) -> (fx, fy), each (N, H, W).
+    A bfloat16 M stores pass 1's sums in bf16 before pass 2 (the bf16
+    route); the solve is float32."""
     smooth5_solve_plain.calls += 1
     taps = agg_kernel(winsize)
-    s = smooth_axis_plain(smooth_axis_plain(M, taps, -1), taps, -2)
+    pass1 = smooth_axis_plain(M, taps, -1)
+    s = smooth_axis_plain(pass1.to(M.dtype), taps, -2)
     g11, g12, g22, h1, h2 = s.unbind(1)
     idet = 1.0 / (g11 * g22 - g12 * g12 + 1e-3)
     return (g11 * h2 - g12 * h1) * idet, (g22 * h1 - g12 * h2) * idet
@@ -122,10 +205,14 @@ smooth5_solve_plain.calls = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _taps_host(winsize: int) -> torch.Tensor:
+def _taps_host(winsize: int, bf16: bool = False) -> torch.Tensor:
     """The taps as a CPU tensor: the C entry points copy them into the
-    kernels' parameters."""
-    return torch.from_numpy(agg_kernel(winsize))
+    kernels' parameters.  For the bf16 entry, :func:`bf16_operator`'s taps,
+    lead, trail and total, one after the other (4r + 4 floats)."""
+    if not bf16:
+        return torch.from_numpy(agg_kernel(winsize))
+    taps, lead, trail, total = bf16_operator(agg_kernel(winsize))
+    return torch.from_numpy(np.concatenate([taps, lead, trail, [total]]).astype(np.float32))
 
 
 def _check_cuda_window(name: str, winsize: int, planes: int, h: int, w: int) -> int:
@@ -140,9 +227,10 @@ def _check_cuda_window(name: str, winsize: int, planes: int, h: int, w: int) -> 
 
 
 def smooth_w_plain(x: torch.Tensor, winsize: int) -> torch.Tensor:
-    """Plain PyTorch version of K3's row pass alone."""
+    """Plain PyTorch version of K3's row pass alone, stored in ``x``'s
+    dtype (a bfloat16 ``x`` takes the bf16 route)."""
     smooth_w_plain.calls += 1
-    return smooth_axis_plain(x, agg_kernel(winsize), -1)
+    return smooth_axis_plain(x, agg_kernel(winsize), -1).to(x.dtype)
 
 
 smooth_w_plain.calls = 0
@@ -150,10 +238,10 @@ smooth_w_plain.calls = 0
 
 def smooth_w(x: torch.Tensor, winsize: int) -> torch.Tensor:
     """K3's row pass alone (``pallas_smooth_w``): (N, C, H, W) contiguous
-    float32 smoothed along W.  A CPU tensor takes the plain version; a CUDA
-    tensor launches the row kernel or raises."""
-    if x.dim() != 4 or x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError("smooth_w takes a contiguous float32 (N, C, H, W) tensor")
+    float32 or bfloat16 smoothed along W, in its dtype.  A CPU tensor takes
+    the plain version; a CUDA tensor launches the row kernel or raises."""
+    if x.dim() != 4 or x.dtype not in STORED_DTYPES or not x.is_contiguous():
+        raise ValueError("smooth_w takes a contiguous float32 or bfloat16 (N, C, H, W) tensor")
     if winsize < 1:
         raise ValueError(f"smooth_w: winsize must be >= 1, got {winsize}")
     if x.device.type == "cpu":
@@ -162,7 +250,8 @@ def smooth_w(x: torch.Tensor, winsize: int) -> torch.Tensor:
     n, c, h, w = x.shape
     r = _check_cuda_window("smooth_w", winsize, n * c, h, w)
     out = torch.empty_like(x)
-    cuda_lib.call("ma_smooth_rows", x.device, x, out, _taps_host(winsize), n * c, h, w, r)
+    bf16 = x.dtype == torch.bfloat16
+    cuda_lib.call("ma_smooth_rows", x.device, x, out, _taps_host(winsize, bf16), n * c, h, w, r, int(bf16))
     smooth_w.launches += 1
     return out
 
@@ -171,13 +260,13 @@ smooth_w.launches = 0
 
 
 def smooth5_solve(M: torch.Tensor, winsize: int):
-    """Window aggregation + solve: (N, 5, H, W) contiguous float32 ->
-    (fx, fy).  A CPU tensor takes the plain version; a CUDA tensor launches
-    K3 or raises."""
+    """Window aggregation + solve: (N, 5, H, W) contiguous float32 or
+    bfloat16 -> (fx, fy), float32; the entry is chosen by M's dtype.  A CPU
+    tensor takes the plain version; a CUDA tensor launches K3 or raises."""
     if M.dim() != 4 or M.shape[1] != 5:
         raise ValueError(f"smooth5_solve takes (N, 5, H, W), got {tuple(M.shape)}")
-    if M.dtype != torch.float32 or not M.is_contiguous():
-        raise ValueError("smooth5_solve: M must be contiguous float32")
+    if M.dtype not in STORED_DTYPES or not M.is_contiguous():
+        raise ValueError("smooth5_solve: M must be contiguous float32 or bfloat16")
     if winsize < 1:
         raise ValueError(f"smooth5_solve: winsize must be >= 1, got {winsize}")
     if M.device.type == "cpu":
@@ -188,10 +277,13 @@ def smooth5_solve(M: torch.Tensor, winsize: int):
     scratch = torch.empty_like(M)
     fx = torch.empty((n, h, w), dtype=torch.float32, device=M.device)
     fy = torch.empty_like(fx)
+    bf16 = M.dtype == torch.bfloat16
     cuda_lib.call("ma_smooth5_solve", M.device, M, scratch, fx, fy,
-                  _taps_host(winsize), n, h, w, r)
+                  _taps_host(winsize, bf16), n, h, w, r, int(bf16))
     smooth5_solve.launches += 1
+    smooth5_solve.bf16_launches += bf16
     return fx, fy
 
 
 smooth5_solve.launches = 0
+smooth5_solve.bf16_launches = 0  # the launches of the bfloat16 entry

@@ -14,6 +14,13 @@ planes, four taps of R1's five planes and the flow in, five planes out.  One
 thread per pixel gathers its taps directly, so it is exact for any
 displacement; the TPU kernel's band and the exact-gather fallback that
 guarded it are gone.
+
+Stored types (the JAX package's ``out_dtype`` and its bf16 R storage, which
+Farneback's reduced-precision route selects): R0 and R1 are float32 or
+bfloat16, both the same; every load is widened to float32 and the
+arithmetic is the float32 one; M is stored in ``out_dtype`` (float32 or
+bfloat16, rounded to nearest even).  One kernel template covers the four
+pairs, and each equals its plain version bit for bit.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from microaligner_tpu_torch.ops.kernel_sample import bilinear_taps, split_displa
 
 __all__ = [
     "BORDER_SCALE",
+    "STORED_DTYPES",
     "edge_scale_map",
     "inbounds_map",
     "combine_matrices",
@@ -33,6 +41,8 @@ __all__ = [
     "update_matrices",
     "update_matrices_plain",
 ]
+
+STORED_DTYPES = (torch.float32, torch.bfloat16)
 
 # OpenCV down-weights the displacement equations in the outer BORDER pixels
 _BORDER = 5
@@ -91,56 +101,70 @@ def combine_matrices(R0, dx, dy, samp, inb, scale) -> torch.Tensor:
     )
 
 
-def zero_flow_matrices(R0, R1) -> torch.Tensor:
-    """M of the first iteration from (N, 5, H, W) expansions: at zero flow R1
+def zero_flow_matrices(R0, R1, out_dtype=torch.float32) -> torch.Tensor:
+    """M of the first iteration from (N, 5, H, W) expansions (float32 or
+    bfloat16, combined in float32), stored as ``out_dtype``: at zero flow R1
     is sampled at p itself, and the 2x2 stencil is inside except on the last
     row and column."""
     n, _, h, w = R0.shape
-    zero = R0.new_zeros((n, h, w))
+    zero = R0.new_zeros((n, h, w), dtype=torch.float32)
     ix = torch.arange(w, device=R0.device).view(1, w)
     iy = torch.arange(h, device=R0.device).view(h, 1)
     inb = ((ix < w - 1) & (iy < h - 1)).expand(n, h, w)
-    return combine_matrices(R0, zero, zero, R1, inb, edge_scale_map(h, w, R0.device))
+    m = combine_matrices(R0.float(), zero, zero, R1.float(), inb, edge_scale_map(h, w, R0.device))
+    return m.to(out_dtype)
 
 
-def update_matrices_plain(R0, R1, fx, fy) -> torch.Tensor:
-    """Plain PyTorch version of K4: (N, 5, H, W) expansions, (N, H, W) flow."""
+def update_matrices_plain(R0, R1, fx, fy, out_dtype=torch.float32) -> torch.Tensor:
+    """Plain PyTorch version of K4: (N, 5, H, W) expansions (float32 or
+    bfloat16, widened to float32), (N, H, W) flow; M stored as ``out_dtype``."""
     update_matrices_plain.calls += 1
     n, c, h, w = R0.shape
     x0, y0, tx, ty = split_displacement(fx, fy)
     inb = (x0 >= 0) & (x0 < w - 1) & (y0 >= 0) & (y0 < h - 1)
     samp = bilinear_taps(
-        R1.reshape(n, c, h * w), x0.unsqueeze(1).expand(n, c, h, w),
+        R1.float().reshape(n, c, h * w), x0.unsqueeze(1).expand(n, c, h, w),
         y0.unsqueeze(1).expand(n, c, h, w), tx.unsqueeze(1), ty.unsqueeze(1), h, w,
     )
-    return combine_matrices(R0, fx, fy, samp, inb, edge_scale_map(h, w, R0.device))
+    m = combine_matrices(R0.float(), fx, fy, samp, inb, edge_scale_map(h, w, R0.device))
+    return m.to(out_dtype)
 
 
 update_matrices_plain.calls = 0
 
 
-def update_matrices(R0, R1, fx, fy) -> torch.Tensor:
-    """M from the expansions R0, R1 (N, 5, H, W) and the flow (N, H, W), all
-    contiguous float32 on one device.  A CPU tensor takes the plain version;
-    a CUDA tensor launches K4 or raises."""
+def update_matrices(R0, R1, fx, fy, out_dtype=torch.float32) -> torch.Tensor:
+    """M, stored as ``out_dtype``, from the expansions R0, R1 (N, 5, H, W;
+    both float32 or both bfloat16) and the float32 flow (N, H, W), all
+    contiguous on one device.  A CPU tensor takes the plain version; a CUDA
+    tensor launches K4 or raises."""
     if R0.dim() != 4 or R0.shape[1] != 5 or R1.shape != R0.shape:
         raise ValueError(f"update_matrices: R0/R1 must be (N, 5, H, W), got "
                          f"{tuple(R0.shape)} and {tuple(R1.shape)}")
+    if R0.dtype not in STORED_DTYPES or R1.dtype != R0.dtype or out_dtype not in STORED_DTYPES:
+        raise ValueError(f"update_matrices: R0, R1 and out_dtype must each be float32 or bfloat16, R0 and R1 "
+                         f"the same; got {R0.dtype}, {R1.dtype} and {out_dtype}")
     fshape = (R0.shape[0],) + tuple(R0.shape[2:])
     for name, t in (("R0", R0), ("R1", R1), ("fx", fx), ("fy", fy)):
-        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != R0.device:
-            raise ValueError(f"update_matrices: {name} must be contiguous float32 on one device")
+        if not t.is_contiguous() or t.device != R0.device:
+            raise ValueError(f"update_matrices: {name} must be contiguous on R0's device")
+    if fx.dtype != torch.float32 or fy.dtype != torch.float32:
+        raise ValueError("update_matrices: the flow must be float32")
     if tuple(fx.shape) != fshape or tuple(fy.shape) != fshape:
         raise ValueError(f"update_matrices: flow must be {fshape}, got {tuple(fx.shape)}")
     if R0.device.type == "cpu":
-        return update_matrices_plain(R0, R1, fx, fy)
+        return update_matrices_plain(R0, R1, fx, fy, out_dtype)
     cuda_lib.require_cuda(R0, R1, fx, fy)
     n, _, h, w = R0.shape
     cuda_lib.check_grid("update_matrices", n, -(-h // 8))  # 32 x 8 threads a block
-    out = torch.empty_like(R0)
-    cuda_lib.call("ma_update_matrices", R0.device, R0, R1, fx, fy, out, n, h, w)
+    out = torch.empty(R0.shape, dtype=out_dtype, device=R0.device)
+    cuda_lib.call("ma_update_matrices", R0.device, R0, R1, fx, fy, out, n, h, w,
+                  int(R0.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16))
     update_matrices.launches += 1
+    if torch.bfloat16 in (R0.dtype, out_dtype):
+        update_matrices.bf16_launches += 1
     return out
 
 
 update_matrices.launches = 0
+update_matrices.bf16_launches = 0  # the launches that read R or stored M in bfloat16

@@ -9,7 +9,11 @@ Inputs are the two pre-smoothed images, each padded by one replicated pixel:
 (N, H+2, W+2) f32.  Outputs are R0 and R1, each image's expansion
 [b_y, b_x, A_yy, A_xx, A_xy] from the 3-tap g/xg/xxg moments (poly_n = 1),
 and M0, the first iteration's normal equations [G11, G12, G22, h1, h2] at
-zero flow; all three are (N, 5, H, W) f32.
+zero flow; all three are (N, 5, H, W), R0 and R1 stored as ``r_dtype`` and
+M0 as ``m_dtype`` (float32 by default; bfloat16 on Farneback's
+reduced-precision route, as the TPU kernel's ``r_dtype`` and ``m_dtype``).
+The expansion and the combine run in float32; M0 is combined from the
+values before they are rounded, and the rounding is to nearest even.
 
 On the H100 the kernel (``csrc/poly.cu``) is bound by bytes: two planes in,
 fifteen out, about forty flops a pixel.  One thread per pixel reads its 3x3
@@ -32,7 +36,7 @@ from __future__ import annotations
 import torch
 
 from microaligner_tpu_torch.ops import cuda_lib
-from microaligner_tpu_torch.ops.kernel_matrices import zero_flow_matrices
+from microaligner_tpu_torch.ops.kernel_matrices import STORED_DTYPES, zero_flow_matrices
 
 __all__ = ["poly_pair_m", "poly_pair_m_plain", "poly_exp5", "poly_exp5_plain"]
 
@@ -110,20 +114,25 @@ def poly_exp5(sp: torch.Tensor, coeffs: tuple) -> torch.Tensor:
 poly_exp5.launches = 0
 
 
-def poly_pair_m_plain(sp0: torch.Tensor, sp1: torch.Tensor, coeffs: tuple):
-    """Plain PyTorch version of K2: (R0, R1, M0), each (N, 5, H, W)."""
+def poly_pair_m_plain(sp0: torch.Tensor, sp1: torch.Tensor, coeffs: tuple,
+                      r_dtype=torch.float32, m_dtype=torch.float32):
+    """Plain PyTorch version of K2: (R0, R1, M0), each (N, 5, H, W), M0
+    combined from the float32 expansions before they are stored as
+    ``r_dtype``."""
     poly_pair_m_plain.calls += 1
     r0 = poly_exp5_plain(sp0, coeffs)
     r1 = poly_exp5_plain(sp1, coeffs)
-    return r0, r1, zero_flow_matrices(r0, r1)
+    return r0.to(r_dtype), r1.to(r_dtype), zero_flow_matrices(r0, r1, m_dtype)
 
 
 poly_pair_m_plain.calls = 0
 
 
-def poly_pair_m(sp0: torch.Tensor, sp1: torch.Tensor, coeffs: tuple):
-    """Expansions R0, R1 of a pre-smoothed, padded pair and the zero-flow
-    equations M0.  ``sp0``/``sp1`` are (N, H+2, W+2) float32 on one device;
+def poly_pair_m(sp0: torch.Tensor, sp1: torch.Tensor, coeffs: tuple,
+                r_dtype=torch.float32, m_dtype=torch.float32):
+    """Expansions R0, R1 (stored as ``r_dtype``) of a pre-smoothed, padded
+    pair and the zero-flow equations M0 (``m_dtype``); each dtype is float32
+    or bfloat16.  ``sp0``/``sp1`` are (N, H+2, W+2) float32 on one device;
     a CPU tensor takes the plain version, a CUDA tensor launches K2 or raises.
     """
     if sp0.dim() != 3 or sp0.shape != sp1.shape or sp0.shape[1] < 3 or sp0.shape[2] < 3:
@@ -134,17 +143,22 @@ def poly_pair_m(sp0: torch.Tensor, sp1: torch.Tensor, coeffs: tuple):
     for name, t in (("sp0", sp0), ("sp1", sp1)):
         _check_padded(f"poly_pair_m: {name}", t, sp0.device)
     _check_coeffs("poly_pair_m", coeffs)
+    if r_dtype not in STORED_DTYPES or m_dtype not in STORED_DTYPES:
+        raise ValueError(f"poly_pair_m: r_dtype and m_dtype must be float32 or bfloat16, got {r_dtype}, {m_dtype}")
     if sp0.device.type == "cpu":
-        return poly_pair_m_plain(sp0, sp1, coeffs)
+        return poly_pair_m_plain(sp0, sp1, coeffs, r_dtype, m_dtype)
     cuda_lib.require_cuda(sp0, sp1)
     n, h, w = sp0.shape[0], sp0.shape[1] - 2, sp0.shape[2] - 2
     cuda_lib.check_grid("poly_pair_m", n, -(-h // 8))  # 32 x 8 threads a block
-    r0, r1, m0 = (torch.empty((n, 5, h, w), dtype=torch.float32, device=sp0.device)
-                  for _ in range(3))
+    r0, r1, m0 = (torch.empty((n, 5, h, w), dtype=dt, device=sp0.device)
+                  for dt in (r_dtype, r_dtype, m_dtype))
     cuda_lib.call("ma_poly_pair_m", sp0.device, sp0, sp1, r0, r1, m0, n, h, w,
-                  *(_f32(c) for c in coeffs))
+                  *(_f32(c) for c in coeffs), int(r_dtype == torch.bfloat16), int(m_dtype == torch.bfloat16))
     poly_pair_m.launches += 1
+    if torch.bfloat16 in (r_dtype, m_dtype):
+        poly_pair_m.bf16_launches += 1
     return r0, r1, m0
 
 
 poly_pair_m.launches = 0
+poly_pair_m.bf16_launches = 0  # the launches that stored R or M0 in bfloat16

@@ -16,8 +16,24 @@ Stages, on (N, H, W) batches with the flow kept as separate x and y planes:
    (:func:`~microaligner_tpu_torch.ops.kernel_matrices.update_matrices`):
    R1 resampled at the new flow and recombined into M.
 
-All of it runs in float32; borders replicate, as in OpenCV, except the
-pre-smooth's REFLECT_101.
+Borders replicate, as in OpenCV, except the pre-smooth's REFLECT_101.
+
+Precision.  ``MICROALIGNER_TPU_AGG_PRECISION`` and
+``MICROALIGNER_TPU_R_BF16`` select the route, as in the JAX package
+(``_agg_precision``, ``_m_storage_dtype``, ``_r_storage_dtype``), read once
+per :func:`_farneback_core_parts` call:
+
+* unset, ``high`` or ``highest``: the float32 route.  Everything is stored
+  and computed in float32.  Unset is the port's default and a stated
+  departure: the JAX package takes the bf16 route unset on its TPU for
+  windows of ``_BF16_MIN_WINSIZE`` (49) and more.
+* ``default``: the bf16 route, the JAX package's accelerator route, at every
+  window.  M is stored in bfloat16 and so are R0 and R1 unless
+  ``MICROALIGNER_TPU_R_BF16=0`` (then float32 R with bfloat16 M).  The
+  expansion, the combine, the aggregation's sums and the solve run in
+  float32; K3 rounds its coefficients and its row pass's result to bf16, as
+  the TPU kernel does.
+* any other value raises.
 
 The unpaired route.  With ``MICROALIGNER_TPU_PALLAS_POLY=1`` in the
 environment and ``poly_n == 1``, stage 2 runs as the JAX package's unpaired
@@ -28,9 +44,12 @@ the port adds no other.  The JAX package takes that branch only when its
 pair kernel's self-test gate fails, and reads the variable at trace time,
 so a change mid-process is ignored after the first trace; the port has no
 gates, so the variable alone picks the route, and it is read on every call
-of :func:`_farneback_core_parts`.  Both routes give the same flow bit for
-bit: K2's plain version is two expansions plus the same combine, and each
-kernel equals its plain version.
+of :func:`_farneback_core_parts`.  On the float32 route both give the same
+flow bit for bit: K2's plain version is two expansions plus the same
+combine, and each kernel equals its plain version.  On the bf16 route they
+do not, as in the JAX package: K2 combines M0 from the float32 expansions
+before it rounds R, while the unpaired branch (and ``poly_n != 1``) rounds R
+first and combines M0 from the rounded values.
 """
 
 from __future__ import annotations
@@ -55,6 +74,13 @@ from microaligner_tpu_torch.ops.kernel_poly import poly_exp5, poly_pair_m
 __all__ = ["farneback", "poly_exp"]
 
 PALLAS_POLY_ENV = "MICROALIGNER_TPU_PALLAS_POLY"
+AGG_PRECISION_ENV = "MICROALIGNER_TPU_AGG_PRECISION"
+R_BF16_ENV = "MICROALIGNER_TPU_R_BF16"
+
+# The JAX package's smallest window for its bf16 aggregation when the
+# variable is unset; the port's unset route is float32 at every window.
+_BF16_MIN_WINSIZE = 49
+_PRECISIONS = {"default": "default", "high": "highest", "highest": "highest"}
 
 # the JAX package's names for tables and maps that live beside the kernels here
 _BORDER_SCALE = BORDER_SCALE
@@ -95,6 +121,43 @@ def _poly_coeff_tuple(n: int, sigma: float):
     """The eight scalars K2 takes: (g0, g1, xg1, xxg1, ig11, ig03, ig33, ig55)."""
     g, xg, xxg, ig11, ig03, ig33, ig55 = _poly_exp_coeffs(n, float(sigma))
     return (float(g[0]), float(g[1]), float(xg[2]), float(xxg[2]), ig11, ig03, ig33, ig55)
+
+
+def _agg_precision(winsize: int = _BF16_MIN_WINSIZE) -> str:
+    """The window aggregation's precision: ``"default"`` (bf16 operands,
+    float32 sums) when ``MICROALIGNER_TPU_AGG_PRECISION=default``, else
+    ``"highest"`` (``high`` rounds up, as the TPU kernel rounds it).  Unset
+    is ``"highest"`` at every ``winsize``: the port's departure from the
+    JAX package, whose unset TPU route is ``"default"`` from
+    ``_BF16_MIN_WINSIZE`` on.  Any other value raises."""
+    del winsize  # the JAX package's unset route depends on it; the port's does not
+    name = os.environ.get(AGG_PRECISION_ENV, "").lower()
+    if not name:
+        return "highest"
+    if name not in _PRECISIONS:
+        raise ValueError(f"{AGG_PRECISION_ENV}={name!r}: expected one of {sorted(_PRECISIONS)}")
+    return _PRECISIONS[name]
+
+
+def _storage_dtypes(precision: str) -> tuple:
+    """(R dtype, M dtype) of the route at ``precision``: bfloat16 M on the
+    ``"default"`` route, with bfloat16 R unless ``MICROALIGNER_TPU_R_BF16=0``;
+    float32 otherwise."""
+    if precision != "default":
+        return torch.float32, torch.float32
+    rdt = torch.float32 if os.environ.get(R_BF16_ENV, "1") == "0" else torch.bfloat16
+    return rdt, torch.bfloat16
+
+
+def _m_storage_dtype(winsize: int = _BF16_MIN_WINSIZE) -> torch.dtype:
+    """Storage dtype of the normal equations M (see :func:`_agg_precision`)."""
+    return _storage_dtypes(_agg_precision(winsize))[1]
+
+
+def _r_storage_dtype(winsize: int = _BF16_MIN_WINSIZE) -> torch.dtype:
+    """Storage dtype of the expansions R0 and R1: M's, unless
+    ``MICROALIGNER_TPU_R_BF16=0`` keeps them float32."""
+    return _storage_dtypes(_agg_precision(winsize))[0]
 
 
 def _replicate_index(size: int, r: int, device) -> torch.Tensor:
@@ -156,16 +219,20 @@ def _pad_replicate1(x: torch.Tensor) -> torch.Tensor:
     return x.index_select(-1, _replicate_index(w, 1, x.device)).contiguous()
 
 
-def _poly_pair_m(movs: torch.Tensor, refs: torch.Tensor, n: int, sigma: float):
-    """(N, H, W) pair -> (R0, R1, M0); K2 for n = 1, the plain expansion and
-    combine for other ``n`` (the JAX package has no kernel for those either)."""
+def _poly_pair_m(movs: torch.Tensor, refs: torch.Tensor, n: int, sigma: float,
+                 rdt=torch.float32, mdt=torch.float32):
+    """(N, H, W) pair -> (R0, R1, M0) stored as ``rdt``, ``rdt``, ``mdt``;
+    K2 for n = 1 (M0 from the expansions before they are rounded), the plain
+    expansion and combine for other ``n`` (the JAX package has no kernel for
+    those either; R is rounded first, as on its unpaired branch)."""
     s0 = _pre_smooth(movs)
     s1 = _pre_smooth(refs)
     if n == 1:
-        return poly_pair_m(_pad_replicate1(s0), _pad_replicate1(s1), _poly_coeff_tuple(n, sigma))
-    r0 = _poly_exp_cf(s0, n, sigma)
-    r1 = _poly_exp_cf(s1, n, sigma)
-    return r0, r1, zero_flow_matrices(r0, r1)
+        return poly_pair_m(_pad_replicate1(s0), _pad_replicate1(s1), _poly_coeff_tuple(n, sigma),
+                           r_dtype=rdt, m_dtype=mdt)
+    r0 = _poly_exp_cf(s0, n, sigma).to(rdt)
+    r1 = _poly_exp_cf(s1, n, sigma).to(rdt)
+    return r0, r1, zero_flow_matrices(r0, r1, mdt)
 
 
 def _poly_exp_batched(imgs: torch.Tensor, sigma: float) -> torch.Tensor:
@@ -182,20 +249,22 @@ def _farneback_core_parts(
     poly_n: int,
     poly_sigma: float,
 ):
-    """Batched (N, H, W) Farneback -> (fx, fy), each (N, H, W) float32."""
+    """Batched (N, H, W) Farneback -> (fx, fy), each (N, H, W) float32, on
+    the precision route the variables select (read here, once a call)."""
     if num_iter < 1:
         raise ValueError(f"farneback requires num_iter >= 1, got {num_iter}")
+    rdt, mdt = _storage_dtypes(_agg_precision(win_size))
     if poly_n == 1 and os.environ.get(PALLAS_POLY_ENV) == "1":  # read on every call
-        r0 = _poly_exp_batched(movs, poly_sigma)
-        r1 = _poly_exp_batched(refs, poly_sigma)
-        m = zero_flow_matrices(r0, r1)
+        r0 = _poly_exp_batched(movs, poly_sigma).to(rdt)
+        r1 = _poly_exp_batched(refs, poly_sigma).to(rdt)
+        m = zero_flow_matrices(r0, r1, mdt)
     else:
-        r0, r1, m = _poly_pair_m(movs, refs, poly_n, poly_sigma)
+        r0, r1, m = _poly_pair_m(movs, refs, poly_n, poly_sigma, rdt, mdt)
     fx = fy = None
     for i in range(num_iter):
         fx, fy = smooth5_solve(m, win_size)
         if i < num_iter - 1:
-            m = update_matrices(r0, r1, fx, fy)
+            m = update_matrices(r0, r1, fx, fy, out_dtype=mdt)
     return fx, fy
 
 

@@ -32,6 +32,13 @@ plain version: it is held to 1e-4 px of it, and against the plain version
 run in float64 its max and mean error must be no larger than the float32
 plain version's (plus 1e-6 px) and within the bars that
 ``tests/test_torch_kernel_agg.py`` holds the plain version to on the CPU.
+
+The typed entries of Farneback's reduced-precision route
+(``MICROALIGNER_TPU_AGG_PRECISION=default``) are held bit for bit: K2 and K4
+over every pair of stored types of R and M, and K3's bfloat16 entry (a
+product of two bf16 values is exact in float32, so its fused multiply-add
+rounds where the plain version's add does), at aligned and ragged widths
+and with H or W below the half-window.
 """
 
 
@@ -203,6 +210,110 @@ def test_k6(gen, dev, n, h, w):
     assert kernel_poly.poly_exp5.launches == launches + 1
     assert torch.equal(got, kernel_poly.poly_exp5_plain(a, coeffs))
     assert torch.equal(got, kernel_poly.poly_pair_m(a, b, coeffs)[0])
+
+
+# -- the typed entries of the reduced-precision route ---------------------------
+
+BF16, F32 = torch.bfloat16, torch.float32
+TYPE_PAIRS = [pytest.param(BF16, BF16, id="r-bf16-m-bf16"), pytest.param(F32, BF16, id="r-f32-m-bf16"),
+              pytest.param(BF16, F32, id="r-bf16-m-f32"), pytest.param(F32, F32, id="r-f32-m-f32")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rdt,mdt", TYPE_PAIRS)
+@pytest.mark.parametrize("n,h,w", [(1, 300, 1001), (2, 9, 45), (1, 64, 1000)])
+def test_k2_typed(gen, dev, n, h, w, rdt, mdt):
+    a, b, coeffs = _k2_inputs(gen, dev, n, h, w)
+    launches = kernel_poly.poly_pair_m.launches
+    got = kernel_poly.poly_pair_m(a, b, coeffs, r_dtype=rdt, m_dtype=mdt)
+    torch.cuda.synchronize()
+    assert kernel_poly.poly_pair_m.launches == launches + 1
+    want = kernel_poly.poly_pair_m_plain(a, b, coeffs, rdt, mdt)
+    assert [g.dtype for g in got] == [rdt, rdt, mdt]
+    for g, wv in zip(got, want):
+        assert torch.equal(g, wv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rdt,mdt", TYPE_PAIRS)
+@pytest.mark.parametrize("n,h,w,spread", [(1, 300, 1001, 6.0), (1, 9, 45, 40.0), (2, 40, 1000, 3.0)])
+def test_k4_typed(gen, dev, n, h, w, spread, rdt, mdt):
+    a, b, coeffs = _k2_inputs(gen, dev, n, h, w)
+    r0, r1, _ = kernel_poly.poly_pair_m_plain(a, b, coeffs, rdt)
+    fx = torch.from_numpy(((gen.random((n, h, w)) - 0.5) * spread).astype(np.float32)).to(dev)
+    fy = torch.from_numpy(((gen.random((n, h, w)) - 0.5) * spread).astype(np.float32)).to(dev)
+    launches = kernel_matrices.update_matrices.launches
+    got = kernel_matrices.update_matrices(r0, r1, fx, fy, out_dtype=mdt)
+    torch.cuda.synchronize()
+    assert kernel_matrices.update_matrices.launches == launches + 1 and got.dtype == mdt
+    assert torch.equal(got, kernel_matrices.update_matrices_plain(r0, r1, fx, fy, mdt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,win", [
+    pytest.param(1, 300, 1001, 99, id="win99-ragged-width"),
+    pytest.param(1, 300, 1000, 99, id="win99-aligned-width"),
+    pytest.param(2, 260, 520, 49, id="win49-n2-aligned-width"),
+    pytest.param(1, 130, 150, 49, id="win49-w-not-on-4"),
+    pytest.param(2, 12, 45, 11, id="win11-n2-h12"),
+    pytest.param(2, 40, 30, 99, id="win99-n2-h-and-w-below-r"),
+    pytest.param(1, 515, 100, 257, id="win257-w-below-r-three-tiles"),
+    pytest.param(1, 3, 2, 99, id="win99-h3-w2"),
+    pytest.param(1, 1, 8, 11, id="win11-h1"),
+    pytest.param(3, 5, 1, 11, id="win11-w1"),
+])
+def test_k3_bf16(gen, dev, n, h, w, win):
+    a, b, coeffs = _k2_inputs(gen, dev, n, h, w)
+    M = kernel_poly.poly_pair_m_plain(a, b, coeffs, BF16, BF16)[2]
+    launches = kernel_agg.smooth5_solve.launches, kernel_agg.smooth_w.launches
+    got = kernel_agg.smooth5_solve(M, win)
+    row = kernel_agg.smooth_w(M, win)
+    torch.cuda.synchronize()
+    assert (kernel_agg.smooth5_solve.launches, kernel_agg.smooth_w.launches) == (launches[0] + 1, launches[1] + 1)
+    assert row.dtype == BF16 and torch.equal(row, kernel_agg.smooth_w_plain(M, win))
+    for g, p in zip(got, kernel_agg.smooth5_solve_plain(M, win)):
+        assert g.dtype == F32 and torch.equal(g, p)
+
+
+@pytest.mark.cuda
+def test_k3_bf16_row_pass_on_an_unaligned_view(gen, dev):
+    """The row pass's vector copies need rows on 8 bytes: a bf16 tensor
+    whose data starts 2 bytes in takes the element copies."""
+    base = torch.from_numpy(gen.random((1 * 3 * 40 * 64 + 1), dtype=np.float32)).to(dev, BF16)
+    x = base[1:].view(1, 3, 40, 64)
+    assert x.data_ptr() % 8 != 0
+    assert torch.equal(kernel_agg.smooth_w(x, 49), kernel_agg.smooth_w_plain(x, 49))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r_bf16", ["1", "0"])
+def test_bf16_route_on_card(gen, dev, monkeypatch, r_bf16):
+    """``_farneback_core_parts`` under ``default`` on the card: K2, K3 and
+    K4 launched with the route's stored types, no plain version; the flow
+    against the same route through the plain versions on the CPU (phase 3's
+    bars) and within the JAX package's hardware bars of the float32 route."""
+    monkeypatch.setenv("MICROALIGNER_TPU_AGG_PRECISION", "default")
+    monkeypatch.setenv("MICROALIGNER_TPU_R_BF16", r_bf16)
+    mov, ref = _smooth_pair(gen, dev, 2, 300, 420)
+    calls = [kernel_poly.poly_pair_m_plain.calls, kernel_agg.smooth5_solve_plain.calls,
+             kernel_matrices.update_matrices_plain.calls]
+    before = [kernel_poly.poly_pair_m.launches, kernel_agg.smooth5_solve.launches,
+              kernel_matrices.update_matrices.launches]
+    got = tfb._farneback_core_parts(mov, ref, 99, 3, 1, 1.7)
+    torch.cuda.synchronize()
+    after = [kernel_poly.poly_pair_m.launches, kernel_agg.smooth5_solve.launches,
+             kernel_matrices.update_matrices.launches]
+    assert [a - b for a, b in zip(after, before)] == [1, 3, 2]
+    assert calls == [kernel_poly.poly_pair_m_plain.calls, kernel_agg.smooth5_solve_plain.calls,
+                     kernel_matrices.update_matrices_plain.calls]
+    cpu = tfb._farneback_core_parts(mov.cpu(), ref.cpu(), 99, 3, 1, 1.7)
+    monkeypatch.delenv("MICROALIGNER_TPU_AGG_PRECISION")
+    f32 = tfb._farneback_core_parts(mov, ref, 99, 3, 1, 1.7)
+    for g, c, f in zip(got, cpu, f32):
+        err = (g.cpu() - c).abs()
+        assert float(err.mean()) < 1e-4 and float(err.max()) < 1e-2
+        err = (g - f).abs()
+        assert float(err.mean()) < 1e-3 and float(err.max()) < 0.05
 
 
 @pytest.mark.cuda
