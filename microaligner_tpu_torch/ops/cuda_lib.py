@@ -42,8 +42,10 @@ SIGNATURES = {
     "ma_sample_multi": (_P, _P, _P, _I, _I, _F, _P) + (_I,) * 9 + (_P, _P),
     "ma_poly_pair_m": (_P, _P, _P, _P, _P, _I, _I, _I) + (_F,) * 8 + (_I, _I, _P),
     "ma_poly_exp5": (_P, _P, _I, _I, _I) + (_F,) * 8 + (_P,),
-    "ma_smooth5_solve": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "ma_smooth_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "ma_smooth5_solve": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ma_smooth_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "ma_smooth5_solve_tc": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P),
+    "ma_smooth_rows_tc": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "ma_update_matrices": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 

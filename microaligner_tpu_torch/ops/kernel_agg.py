@@ -35,15 +35,22 @@ The row pass alone is :func:`smooth_w`, the counterpart of
 The bfloat16 entry.  Where M is bfloat16 (Farneback's reduced-precision
 route, ``MICROALIGNER_TPU_AGG_PRECISION=default``), both functions compute
 what the TPU kernel computes for bf16 M: its banded operator's coefficients
-rounded to bf16, products summed in float32, pass 1's result stored in bf16
-(``smooth_w`` returns it), pass 2 summed from those values and the solve in
-float32.  The TPU operator folds the taps that the replicate border sends
-to an edge pixel into one coefficient (``_banded_smooth_matrix``: summed in
-float64, rounded to float32, then to bf16); the plain version and the kernel
-apply that coefficient to the edge pixel, not the rounded taps one by one
-(:func:`bf16_operator`).  A product of two bf16 values is exact in float32,
-so the kernel's fused multiply-add rounds where the plain version's add
-does, and the bf16 kernels equal their plain versions bit for bit.
+rounded to bf16 (:func:`bf16_operator`; the TPU operator folds the taps
+that the replicate border sends to an edge pixel into one coefficient,
+``_banded_smooth_matrix``), products summed in float32, pass 1's result
+stored in bf16 (``smooth_w`` returns it), pass 2 summed from those values
+and the solve in float32.  On the card that entry is a banded bf16 product
+on the tensor cores (``csrc/agg_tc.cu``), the Hopper form of the TPU
+kernel's MXU matmul, bound by bytes: a warp owns 32 outputs along the
+filtered axis and multiplies their 32 + 2 R8 sources (R8 = r rounded up to
+8) by the operator's slice, which :func:`tc_factor_table` lays out on the
+host in the lanes' fragment order, one slot a 32-output group, the groups
+at least r from both ends sharing one Toeplitz slot.  The tensor cores sum
+in their own order, so the entry is held to its plain version within bars,
+not bit for bit: the row pass within one bf16 unit plus the bound on two
+float32 orders of the same sum, 2 (2r+1) 2^-24 sum_k |c_k x_k|; the flow
+within 1e-4 px in mean and 1e-2 px at most; and no further than the plain
+version from a float64 run of the same operator.
 """
 
 from __future__ import annotations
@@ -65,35 +72,69 @@ __all__ = [
     "smooth5_solve_plain",
     "smooth_w",
     "smooth_w_plain",
+    "tc_factor_table",
 ]
 
-# the CUDA kernel's limit on r: its tap table in the kernel parameters holds
-# 2 * 128 + 1 taps (two staged tiles of 256 + 2r lines then take 130 KB of the
-# 227 KB of shared memory a block can have)
+# the CUDA kernels' limit on r: the float32 entry's tap table in the kernel
+# parameters holds 2 * 128 + 1 taps (two staged tiles of 256 + 2r lines then
+# take 130 KB of the 227 KB of shared memory a block can have); the bf16
+# entry's staged sources are sized for it too
 MAX_HALF_WINDOW = 128
-# agg.cu's launch shape: a tile of either pass is 32 lines x 256 outputs along
-# the filtered axis, a block is 512 threads, a step of the sum takes 20 taps
-# in the row pass and 11 in the column pass
+# agg.cu's launch shape (the float32 entry): a tile of either pass is 32
+# lines x 256 outputs along the filtered axis, a block is 512 threads, a step
+# of the sum takes 20 taps in the row pass and 11 in the column pass
 _TILE = (32, 256)
 BLOCK_THREADS = 512
 _STEP_TAPS = {"smooth_rows_kernel": 20, "smooth_cols_solve_kernel": 11}
+# agg_tc.cu's (the bf16 entry): 128 outputs a block along the filtered axis,
+# 32 a warp (one factor slot), 4 warps; pass 1 takes 64 rows a block, pass 2
+# 16 columns (of pass 1's sums, which smooth5_solve stores transposed)
+TC_BLOCK, TC_GROUP, TC_THREADS, TC_ROWS, TC_COLS = 128, 32, 128, 64, 16
+KERNEL_THREADS = {"smooth_rows_kernel": BLOCK_THREADS, "smooth_cols_solve_kernel": BLOCK_THREADS,
+                  "agg_rows_tc_kernel": TC_THREADS, "agg_cols_solve_tc_kernel": TC_THREADS}
 
 
-def block_shared_bytes(kernel: str, r: int, itemsize: int = 4) -> int:
-    """Dynamic shared memory a block of ``smooth_rows_kernel`` or
-    ``smooth_cols_solve_kernel`` takes at half-window ``r``: two tiles of
-    256 + 2r lines (the taps rounded up to whole steps) by 32 elements of
-    ``itemsize`` bytes (4 for float32, 2 for bfloat16).  The row pass rounds
-    its row stride up to 4 mod 8 elements.  The column pass's bfloat16 entry
-    adds a float32 table of one tile's sums near the column's ends."""
+def tc_halo(r: int) -> int:
+    """R8: the sources a 32-output group of the bf16 entry reads left (and
+    right) of its outputs, r rounded up to 8 (so staged rows start on 16
+    bytes)."""
+    return -(-r // 8) * 8
+
+
+def tc_sources(r: int) -> int:
+    """Sources a 128-output block of the bf16 entry stages: 128 + 2 R8, the
+    128 + 2r that block reads rounded up to 16 (240 at window 99, 384 at r =
+    128)."""
+    return TC_BLOCK + 2 * tc_halo(r)
+
+
+def tc_steps(r: int) -> int:
+    """k-steps of 16 sources a warp of the bf16 entry makes for its 32
+    outputs: (32 + 2 R8) / 16 (9 at window 99)."""
+    return (TC_GROUP + 2 * tc_halo(r)) // 16
+
+
+def block_shared_bytes(kernel: str, r: int) -> int:
+    """Dynamic shared memory a block of one of K3's kernels takes at
+    half-window ``r``.  The float32 entry (``smooth_rows_kernel``,
+    ``smooth_cols_solve_kernel``): two tiles of 256 + 2r lines (the taps
+    rounded up to whole steps) by 32 floats, the row pass's row stride
+    rounded up to 4 mod 8 elements.  The bf16 entry: ``agg_rows_tc_kernel``
+    stages 64 rows of 128 + 2 R8 bf16 sources on a stride one 16-byte unit
+    longer (or, at r = 0, holds the 128 x 72 transposed sums that take their
+    place); ``agg_cols_solve_tc_kernel`` stages 5 planes x 16 columns of
+    them."""
+    if kernel == "agg_rows_tc_kernel":
+        return 2 * max(TC_ROWS * (tc_sources(r) + 8), TC_BLOCK * (TC_ROWS + 8))
+    if kernel == "agg_cols_solve_tc_kernel":
+        return 2 * 5 * TC_COLS * (tc_sources(r) + 8)
     step = _STEP_TAPS[kernel]
     ntp = -(-(2 * r + 1) // step) * step
     if kernel == "smooth_rows_kernel":
         lines = -(-(_TILE[1] + ntp) // 4) * 4
         lines += 4 if lines % 8 == 0 else 0
-        return itemsize * 2 * _TILE[0] * lines
-    table = 4 * _TILE[0] * _TILE[1] if itemsize == 2 else 0
-    return itemsize * 2 * _TILE[0] * (_TILE[1] + ntp - 1) + table
+        return 4 * 2 * _TILE[0] * lines
+    return 4 * 2 * _TILE[0] * (_TILE[1] + ntp - 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -156,6 +197,65 @@ def _bf16_table(tap_bytes: bytes, n: int) -> torch.Tensor:
     return torch.from_numpy(table.astype(np.float32))
 
 
+def tc_groups(n: int, winsize: int) -> tuple:
+    """``(groups, gl, gt)`` of the bf16 entry's factor table for an axis of
+    n pixels: the 32-output groups its blocks cover (4 a 128-output block)
+    and the interior ones, [gl, gt), whose outputs lie at least r from both
+    ends and so read one Toeplitz slice (gl = gt = groups where none does).
+    Group g's slot is g below gl, gl inside, gl + 1 + g - gt above."""
+    r = winsize // 2
+    groups = -(-n // TC_BLOCK) * (TC_BLOCK // TC_GROUP)
+    inner = [g for g in range(groups) if g * TC_GROUP >= r and g * TC_GROUP + TC_GROUP - 1 <= n - 1 - r]
+    if not inner:
+        return groups, groups, groups
+    return groups, inner[0], inner[-1] + 1
+
+
+@functools.lru_cache(maxsize=64)
+def tc_factor_table(n: int, winsize: int) -> tuple:
+    """The bf16 entry's operator for an axis of n pixels, as the B
+    fragments of ``mma.m16n8k16`` in the order the lanes hold them:
+    ``(table, gl, gt)``, table an int16 array (the bf16 bits) of shape
+    (slots, steps, 2, 32, 8).  Slot q is the slot of one group g
+    (:func:`tc_groups`), whose 32 outputs read sources from 32 g - R8 on:
+    for k-step s, pair p and lane l, the 8 values are the registers b01 and
+    b23 of n-tiles 2p and 2p + 1, b01 = (B[k, j], B[k + 1, j]) and b23 =
+    (B[k + 8, j], B[k + 9, j]) with k = 16 s + 2 (l % 4), j = 8 t + l // 4
+    and B[k, j] = D[32 g - R8 + k, 32 g + j], D[src, out] the coefficient
+    output ``out`` applies to pixel ``src`` (:func:`_bf16_table`; 0 off the
+    axis and the band).  Every entry of the operator's block slices
+    (``_band_factors`` of the JAX package, in bf16) lies in some group's B,
+    and nothing else does."""
+    r = winsize // 2
+    coeffs = _bf16_table(np.ascontiguousarray(agg_kernel(winsize), dtype=np.float32).tobytes(), n).numpy()
+    groups, gl, gt = tc_groups(n, winsize)
+    reps = list(range(gl)) + ([gl] if gl < gt else []) + list(range(gt, groups))
+    steps = tc_steps(r)
+    s = np.arange(steps).reshape(-1, 1, 1, 1)
+    p = np.arange(2).reshape(1, -1, 1, 1)
+    lane = np.arange(32).reshape(1, 1, -1, 1)
+    e = np.arange(8).reshape(1, 1, 1, -1)
+    reg = e // 2  # b01(2p), b23(2p), b01(2p + 1), b23(2p + 1); low half first
+    k = 16 * s + 2 * (lane % 4) + e % 2 + 8 * (reg % 2)
+    j = 8 * (2 * p + reg // 2) + lane // 4
+    tap = k - j - tc_halo(r) + r  # the tap of output 32 g + j that reads source 32 g - R8 + k
+    table = []
+    for g in reps:
+        out = TC_GROUP * g + j
+        inside = (out < n) & (tap >= 0) & (tap <= 2 * r)
+        table.append(np.where(inside, coeffs[np.clip(tap, 0, 2 * r), np.minimum(out, n - 1)], 0.0))
+    table = np.stack(table).astype(np.float32)
+    bits = torch.from_numpy(table).to(torch.bfloat16).view(torch.int16).numpy()
+    return bits, gl, gt
+
+
+@functools.lru_cache(maxsize=64)
+def _tc_factors_on(n: int, winsize: int, device: torch.device) -> tuple:
+    """:func:`tc_factor_table` on ``device``: ``(tensor, gl, gt)``."""
+    bits, gl, gt = tc_factor_table(n, winsize)
+    return torch.from_numpy(bits).to(device), gl, gt
+
+
 def smooth_axis_plain(x: torch.Tensor, taps: np.ndarray, axis: int) -> torch.Tensor:
     """Replicate-border correlation of ``x`` with ``taps`` along ``axis``
     (-1 or -2): out[i] = sum_k taps[k] x[clamp(i + k - r)], summed in
@@ -205,23 +305,22 @@ smooth5_solve_plain.calls = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _taps_host(winsize: int, bf16: bool = False) -> torch.Tensor:
-    """The taps as a CPU tensor: the C entry points copy them into the
-    kernels' parameters.  For the bf16 entry, :func:`bf16_operator`'s taps,
-    lead, trail and total, one after the other (4r + 4 floats)."""
-    if not bf16:
-        return torch.from_numpy(agg_kernel(winsize))
-    taps, lead, trail, total = bf16_operator(agg_kernel(winsize))
-    return torch.from_numpy(np.concatenate([taps, lead, trail, [total]]).astype(np.float32))
+def _taps_host(winsize: int) -> torch.Tensor:
+    """The taps as a CPU tensor: the float32 entry's C entry points copy
+    them into the kernels' parameters."""
+    return torch.from_numpy(agg_kernel(winsize))
 
 
-def _check_cuda_window(name: str, winsize: int, planes: int, h: int, w: int) -> int:
+def _check_cuda_window(name: str, winsize: int, planes: int, h: int, w: int, bf16: bool = False) -> int:
     r = winsize // 2
     if r > MAX_HALF_WINDOW:
         raise ValueError(f"{name}: winsize // 2 = {r} exceeds the kernel's limit {MAX_HALF_WINDOW}")
-    # the kernels number their tiles with an int; the row pass has the most
-    # (its tiles start up to 3 columns left of the image)
-    if planes * -(-h // _TILE[0]) * -(-(w + 3) // _TILE[1]) >= 2**31:
+    if bf16:
+        # agg_tc.cu's row pass: a grid of (W blocks, 64-row tiles, planes)
+        cuda_lib.check_grid(name, planes, -(-h // TC_ROWS))
+    # the float32 kernels number their tiles with an int; the row pass has the
+    # most (its tiles start up to 3 columns left of the image)
+    elif planes * -(-h // _TILE[0]) * -(-(w + 3) // _TILE[1]) >= 2**31:
         raise ValueError(f"{name}: {planes} planes of {h} x {w} are more tiles than an int counts")
     return r
 
@@ -248,10 +347,14 @@ def smooth_w(x: torch.Tensor, winsize: int) -> torch.Tensor:
         return smooth_w_plain(x, winsize)
     cuda_lib.require_cuda(x)
     n, c, h, w = x.shape
-    r = _check_cuda_window("smooth_w", winsize, n * c, h, w)
-    out = torch.empty_like(x)
     bf16 = x.dtype == torch.bfloat16
-    cuda_lib.call("ma_smooth_rows", x.device, x, out, _taps_host(winsize, bf16), n * c, h, w, r, int(bf16))
+    r = _check_cuda_window("smooth_w", winsize, n * c, h, w, bf16)
+    out = torch.empty_like(x)
+    if bf16:
+        frag, gl, gt = _tc_factors_on(w, winsize, x.device)
+        cuda_lib.call("ma_smooth_rows_tc", x.device, x, out, frag, gl, gt, n * c, h, w, r)
+    else:
+        cuda_lib.call("ma_smooth_rows", x.device, x, out, _taps_host(winsize), n * c, h, w, r)
     smooth_w.launches += 1
     return out
 
@@ -273,13 +376,19 @@ def smooth5_solve(M: torch.Tensor, winsize: int):
         return smooth5_solve_plain(M, winsize)
     cuda_lib.require_cuda(M)
     n, _, h, w = M.shape
-    r = _check_cuda_window("smooth5_solve", winsize, 5 * n, h, w)
+    bf16 = M.dtype == torch.bfloat16
+    r = _check_cuda_window("smooth5_solve", winsize, 5 * n, h, w, bf16)
     scratch = torch.empty_like(M)
     fx = torch.empty((n, h, w), dtype=torch.float32, device=M.device)
     fy = torch.empty_like(fx)
-    bf16 = M.dtype == torch.bfloat16
-    cuda_lib.call("ma_smooth5_solve", M.device, M, scratch, fx, fy,
-                  _taps_host(winsize, bf16), n, h, w, r, int(bf16))
+    if bf16:
+        cuda_lib.check_grid("smooth5_solve", n, -(-w // TC_COLS))  # (H blocks, 16-column strips, images)
+        frag_w, gl_w, gt_w = _tc_factors_on(w, winsize, M.device)
+        frag_h, gl_h, gt_h = _tc_factors_on(h, winsize, M.device)
+        cuda_lib.call("ma_smooth5_solve_tc", M.device, M, scratch, fx, fy, frag_w, gl_w, gt_w,
+                      frag_h, gl_h, gt_h, n, h, w, r)
+    else:
+        cuda_lib.call("ma_smooth5_solve", M.device, M, scratch, fx, fy, _taps_host(winsize), n, h, w, r)
     smooth5_solve.launches += 1
     smooth5_solve.bf16_launches += bf16
     return fx, fy

@@ -16,10 +16,13 @@ The expansion and the combine run in float32; M0 is combined from the
 values before they are rounded, and the rounding is to nearest even.
 
 On the H100 the kernel (``csrc/poly.cu``) is bound by bytes: two planes in,
-fifteen out, about forty flops a pixel.  One thread per pixel reads its 3x3
-window of both images (neighbours share rows through L1) and writes all
-fifteen outputs, so the expansion is never re-read from device memory to
-build M0.
+fifteen out, about forty flops a pixel.  A thread owns 4 consecutive pixels
+of a plane's flat index: where they lie in one row it computes the vertical
+taps of their windows' 6 columns once, in both images, and writes each of
+the fifteen output planes with one packed store (8 bytes of bf16, 16 of
+float32) where H * W is a multiple of 4; a group across a row end computes
+each pixel from its own (y, x).  The expansion is never re-read from device
+memory to build M0, and the arithmetic runs in the plain version's order.
 
 K6 (:func:`poly_exp5`, ``csrc/poly.cu``) replaces
 ``microaligner_tpu/ops/pallas_poly.py::pallas_poly_exp5`` (Pallas body
@@ -149,7 +152,9 @@ def poly_pair_m(sp0: torch.Tensor, sp1: torch.Tensor, coeffs: tuple,
         return poly_pair_m_plain(sp0, sp1, coeffs, r_dtype, m_dtype)
     cuda_lib.require_cuda(sp0, sp1)
     n, h, w = sp0.shape[0], sp0.shape[1] - 2, sp0.shape[2] - 2
-    cuda_lib.check_grid("poly_pair_m", n, -(-h // 8))  # 32 x 8 threads a block
+    cuda_lib.check_grid("poly_pair_m", 1, n)  # one grid row an image, 1,024 pixels a block
+    if h * w >= 2**31 - 4:
+        raise ValueError(f"poly_pair_m: a plane of {h} x {w} has more pixels than the kernel's int counts")
     r0, r1, m0 = (torch.empty((n, 5, h, w), dtype=dt, device=sp0.device)
                   for dt in (r_dtype, r_dtype, m_dtype))
     cuda_lib.call("ma_poly_pair_m", sp0.device, sp0, sp1, r0, r1, m0, n, h, w,

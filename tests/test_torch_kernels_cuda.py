@@ -34,11 +34,20 @@ plain version's (plus 1e-6 px) and within the bars that
 ``tests/test_torch_kernel_agg.py`` holds the plain version to on the CPU.
 
 The typed entries of Farneback's reduced-precision route
-(``MICROALIGNER_TPU_AGG_PRECISION=default``) are held bit for bit: K2 and K4
-over every pair of stored types of R and M, and K3's bfloat16 entry (a
-product of two bf16 values is exact in float32, so its fused multiply-add
-rounds where the plain version's add does), at aligned and ragged widths
-and with H or W below the half-window.
+(``MICROALIGNER_TPU_AGG_PRECISION=default``): K2 and K4 are held bit for bit
+over every pair of stored types of R and M (K2 also at widths that are odd
+or not a multiple of its 4 pixels a thread, and at H = 1).  K3's bfloat16
+entry sums on the tensor cores, in their order, so it is held to bars: its
+row pass within one bf16 unit (2^-7 of the value) of the plain version (a
+float32 sum can round to the neighbouring bf16 value) plus 2 (2r+1) 2^-24
+sum_k |c_k x_k|, the most two float32 sums of the same products taken in
+different orders can differ (it is the larger term only where a sum cancels
+to a small fraction of its terms, as in the signed G12 plane), its flow within
+1e-4 px in mean and 1e-2 px at most of the plain version (the bar of the
+card against the CPU on this route), and against a float64 run of the same
+bf16 operator no further than the plain version is, within 10% in mean and
+5e-3 px in max; at aligned and ragged widths, with H or W below the
+half-window, and on one-pixel axes.
 """
 
 
@@ -221,7 +230,8 @@ TYPE_PAIRS = [pytest.param(BF16, BF16, id="r-bf16-m-bf16"), pytest.param(F32, BF
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rdt,mdt", TYPE_PAIRS)
-@pytest.mark.parametrize("n,h,w", [(1, 300, 1001), (2, 9, 45), (1, 64, 1000)])
+@pytest.mark.parametrize("n,h,w", [(1, 300, 1001), (2, 9, 45), (1, 64, 1000), (1, 7, 1), (2, 5, 3), (1, 33, 5),
+                                   (1, 40, 4095), (2, 1, 1000), (1, 1, 4095)])
 def test_k2_typed(gen, dev, n, h, w, rdt, mdt):
     a, b, coeffs = _k2_inputs(gen, dev, n, h, w)
     launches = kernel_poly.poly_pair_m.launches
@@ -270,19 +280,56 @@ def test_k3_bf16(gen, dev, n, h, w, win):
     row = kernel_agg.smooth_w(M, win)
     torch.cuda.synchronize()
     assert (kernel_agg.smooth5_solve.launches, kernel_agg.smooth_w.launches) == (launches[0] + 1, launches[1] + 1)
-    assert row.dtype == BF16 and torch.equal(row, kernel_agg.smooth_w_plain(M, win))
-    for g, p in zip(got, kernel_agg.smooth5_solve_plain(M, win)):
-        assert g.dtype == F32 and torch.equal(g, p)
+    assert row.dtype == BF16
+    _row_pass_within_bar(M, win, row, kernel_agg.smooth_w_plain(M, win))
+    plain = kernel_agg.smooth5_solve_plain(M, win)
+    for g, p in zip(got, plain):
+        err = (g - p).abs()
+        assert g.dtype == F32 and float(err.mean()) <= 1e-4 and float(err.max()) <= 1e-2
+    exact = _k3_bf16_float64(M, win)
+    dist = {name: [(v.double() - e).abs() for v, e in zip(pair, exact)] for name, pair in (("got", got), ("plain", plain))}
+    for d_got, d_plain in zip(dist["got"], dist["plain"]):
+        assert float(d_got.mean()) <= 1.1 * float(d_plain.mean()) and float(d_got.max()) <= float(d_plain.max()) + 5e-3
+
+
+def _row_pass_within_bar(x, win, got, want):
+    """One bf16 unit of ``want`` plus 2 (2r+1) 2^-24 sum_k |c_k x_k|."""
+    err = (got.float() - want.float()).abs()
+    sums = kernel_agg.smooth_axis_plain(x.abs(), kernel_agg.agg_kernel(win), -1)
+    bound = 2.0**-7 * want.float().abs() + 2 * (2 * (win // 2) + 1) * 2.0**-24 * sums
+    assert bool((err <= bound).all()), float((err - bound).max())
+
+
+def _k3_bf16_float64(m, win):
+    """fx, fy of K3's bf16 operator on bf16 ``m``, run in float64 with nothing
+    rounded between the passes (``chip_smoke.py::k3_bf16_float64``)."""
+    taps = kernel_agg.agg_kernel(win)
+    r = win // 2
+
+    def smooth(x, axis):
+        n = x.shape[axis]
+        table = kernel_agg._bf16_table(taps.tobytes(), n).to(x.device, torch.float64)
+        if axis == -2:
+            table = table.unsqueeze(-1)
+        xp = x.index_select(axis, torch.arange(-r, n + r, device=x.device).clamp(0, n - 1))
+        acc = torch.zeros_like(x)
+        for k in range(2 * r + 1):
+            acc += xp.narrow(axis, k, n) * table[k]
+        return acc
+
+    g11, g12, g22, h1, h2 = smooth(smooth(m.double(), -1), -2).unbind(1)
+    idet = 1.0 / (g11 * g22 - g12 * g12 + 1e-3)
+    return (g11 * h2 - g12 * h1) * idet, (g22 * h1 - g12 * h2) * idet
 
 
 @pytest.mark.cuda
 def test_k3_bf16_row_pass_on_an_unaligned_view(gen, dev):
-    """The row pass's vector copies need rows on 8 bytes: a bf16 tensor
-    whose data starts 2 bytes in takes the element copies."""
+    """The row pass's 16-byte copies need rows on 16 bytes: a bf16 tensor
+    whose data starts 2 bytes in takes the element copies and stores."""
     base = torch.from_numpy(gen.random((1 * 3 * 40 * 64 + 1), dtype=np.float32)).to(dev, BF16)
     x = base[1:].view(1, 3, 40, 64)
     assert x.data_ptr() % 8 != 0
-    assert torch.equal(kernel_agg.smooth_w(x, 49), kernel_agg.smooth_w_plain(x, 49))
+    _row_pass_within_bar(x, 49, kernel_agg.smooth_w(x, 49), kernel_agg.smooth_w_plain(x, 49))
 
 
 @pytest.mark.cuda

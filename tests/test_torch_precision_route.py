@@ -280,20 +280,30 @@ def test_bf16_coefficients_are_the_tpu_operators(win, n):
             dense[min(max(i + k - r, 0), n - 1), i] += table[k, i]
     want = torch.from_numpy(jfb._banded_smooth_matrix(n, win)).to(BF16).float().numpy()
     np.testing.assert_array_equal(dense, want)
-    # the C entry points' table: taps, lead, trail, total
-    host = kernel_agg._taps_host(win, True).numpy()
-    assert host.shape == (4 * r + 4,)
-    np.testing.assert_array_equal(host[: 2 * r + 1], torch.from_numpy(taps).to(BF16).float().numpy())
+    # the tensor-core kernels' table (B fragments, lane by lane, one slot a 32-output group):
+    # gathered by pixel, the same operator
+    bits, gl, gt = kernel_agg.tc_factor_table(n, win)
+    vals = torch.from_numpy(bits).view(BF16).float().numpy()  # (slots, steps, 2, 32, 8)
+    s, p, lane, e = np.meshgrid(*(np.arange(d) for d in vals.shape[1:]), indexing="ij")
+    k = 16 * s + 2 * (lane % 4) + e % 2 + 8 * (e // 2 % 2)
+    j = 8 * (2 * p + e // 4) + lane // 4
+    dense_tc = np.zeros((n, n), np.float32)
+    for g in range(kernel_agg.tc_groups(n, win)[0]):
+        src, out = 32 * g - kernel_agg.tc_halo(r) + k, 32 * g + j
+        on_axis = (src >= 0) & (src < n) & (out < n)
+        slot = vals[g if g < gl else gl if g < gt else gl + 1 + g - gt]
+        dense_tc[src[on_axis], out[on_axis]] = slot[on_axis]
+        assert not slot[~on_axis].any()  # what falls outside the axis multiplies zero
+    np.testing.assert_array_equal(dense_tc, want)
 
 
-@pytest.mark.parametrize("kernel", ["smooth_rows_kernel", "smooth_cols_solve_kernel"])
+@pytest.mark.parametrize("kernel", ["agg_rows_tc_kernel", "agg_cols_solve_tc_kernel"])
 def test_bf16_blocks_fit_shared_memory(kernel):
-    """K3's bf16 instantiations: two staged tiles of 2-byte elements (and,
-    in the column pass, a float32 table of a tile's sums near the column's
-    ends) fit the 227 KB a block can have at the largest window, and take
-    less than the float32 ones at the main path's window."""
-    assert kernel_agg.block_shared_bytes(kernel, kernel_agg.MAX_HALF_WINDOW, 2) <= 232448
-    assert kernel_agg.block_shared_bytes(kernel, 99 // 2, 2) < kernel_agg.block_shared_bytes(kernel, 99 // 2)
+    """K3's bf16 entry (``csrc/agg_tc.cu``): a block's staged bf16 sources
+    fit the 227 KB a block can have at the largest window, and the four
+    blocks its launch bounds ask for fit an SM at the main path's window."""
+    assert kernel_agg.block_shared_bytes(kernel, kernel_agg.MAX_HALF_WINDOW) <= 232448
+    assert 4 * (kernel_agg.block_shared_bytes(kernel, 99 // 2) + 1024) <= 233472
 
 
 # -- (e), (f) the whole route ----------------------------------------------------
