@@ -88,10 +88,12 @@ Run it from the repository root; with no arguments it needs one card.  Phases, e
    unregistered MSE;
 7. FeatureReg: ``FeatureRegistrator.register`` on config 1's pair of the
    JAX package's bench (4096^2, ``t_true`` of ``bench.py::bench_feature``),
-   two textures, each on the card and on the CPU (the corners within 1e-3
-   px of each other and within 0.5 px of the truth), then on a 20480^2
-   pair with the stage timers on (each level's find, match, RANSAC and
-   gate, summed over the iterations);
+   two textures, each on the card's default route (bf16 operands for the
+   knn cross term and DAISY's blur products) and on the float32 route
+   (``MICROALIGNER_TPU_MATCH_F32=1``, ``MICROALIGNER_TPU_DAISY_EXACT=1``),
+   each within 0.5 px of the truth at the corners, and the second texture
+   on the CPU too, the card's float32 run within 1e-3 px of it (the
+   20480^2 pair is phase 13's);
 8. the chained CLI (``config_with_all_info.yaml``'s parameters: FeatureReg,
    then OptFlowReg) at 4096^2 (3 cycles x 2 channels x 3 z, one OME-TIFF a
    cycle) and 20480^2 (2 x 2 x 1, one CycleStack).  Cycle 2 is the
@@ -152,9 +154,26 @@ Run it from the repository root; with no arguments it needs one card.  Phases, e
    registrations below the CLI's MSE bar, with each route's time and peak
    device memory; the 20480^2 OptFlowReg-only CLI once on the route.  Its
    runs launch K2-K4 only through their bf16 entries; every other phase
-   runs with both variables unset.
+   runs with both variables unset;
+13. FeatureReg's bf16 operand route (``feature_precision``; the card's
+   default, ``MATCH_F32`` and ``DAISY_EXACT`` unset) against its float32
+   route (both ``1``), both in one process: on a 1024^2 pair moved by the
+   ``t_true`` of ``scripts/tpu_parity_check.py::_feature``, that script's
+   bars without cv2 (descriptors of the rows valid on both routes within
+   5e-3, Jaccard of the good-match sets above 0.9, nearest indices of the
+   matches both keep equal on more than 99%, each route's register within
+   0.5 px of the truth), and the card's bf16 register within 0.05 px of the
+   port's CPU run on the bf16 route, with both runs' near-ties; at 4096^2
+   and 20480^2 a register on each route (config 1's parameters, stage
+   timers on) within 0.5 px of the truth, with the routes' corner
+   distance, each level's find and match times, each match call's
+   near-ties and each level's valid descriptor rows; and the knn cross
+   term alone at level 2's shape of the 20480^2 register, bf16 against
+   float32, beside their bounds.  FeatureReg's other runs in phases 7-11
+   take the default route, but for their card-against-CPU checks, which
+   take the float32 route on both sides.
 
-Every path of phases 4-12 runs with the kernels' launch counters set to 0
+Every path of phases 4-13 runs with the kernels' launch counters set to 0
 just before it and read just after: each kernel of the path must have
 launched and no plain version may have run.  The last lines are the card's
 name and power limit as nvidia-smi prints them, a JSON object with one entry
@@ -1754,68 +1773,54 @@ def inverse2x3(fwd) -> np.ndarray:
     return np.linalg.inv(np.vstack([np.asarray(fwd, np.float64), [0.0, 0.0, 1.0]]))[:2]
 
 
-def feature_pairs(dev, rng, counters: "Counters", sizes=(4096, 20480), cpu_pairs=2) -> dict:
+def feature_pairs(dev, rng, counters: "Counters", n=4096, pairs=2, cpu_pair=1) -> dict:
     """Config 1 of the JAX package's bench (``bench.py::bench_feature``):
     ``FeatureRegistrator`` (3 levels [8, 4, 2], 3 iterations, tile 1000,
-    DoG) on 4096^2 u8 pairs moved by ``t_true``, ``cpu_pairs`` textures,
-    each on the card and on the CPU; then a 20480^2 pair on the card with
-    the stage timers on (each level's find, match, RANSAC and gate)."""
+    DoG) on ``pairs`` 4096^2 u8 pairs moved by its ``t_true``
+    (``FEATURE_T_TRUE``), each on the card's
+    default route (bf16 operands) and on the float32 route
+    (``MATCH_F32=1``, ``DAISY_EXACT=1``); pair ``cpu_pair`` also on the CPU
+    on the float32 route, the card's float32 run within 1e-3 px of it at
+    the corners.  Every card run within 0.5 px of the truth.  The 20480^2
+    pair is phase 13's (``feature_precision``)."""
     from microaligner_tpu_torch.features import FeatureRegistrator
-    from microaligner_tpu_torch.ops.filters import minmax_normalize_u8
 
-    t_true = np.array([[1.0004, 0.0003, 6.4], [-0.0003, 1.0004, -9.1]])
-    truth = inverse2x3(t_true)  # register() maps mov coords to ref coords
+    truth = inverse2x3(FEATURE_T_TRUE)  # register() maps mov coords to ref coords
     res, launches = {}, []
-    cases = [(sizes[0], p) for p in range(cpu_pairs)] + [(n, 0) for n in sizes[1:]]
-    for n, pair in cases:
+    for pair in range(pairs):
         key = f"{n}" if pair == 0 else f"{n}_pair{pair + 1}"
         t0 = time.perf_counter()
-        ref = minmax_normalize_u8(texture(rng, n, n, dev)).cpu().numpy()
-        mov = np.clip(np.round(warp_affine_scipy(ref, t_true)), 0, 255).astype(np.uint8)
+        ref, mov = feature_pair(rng, n, dev)
         log(f"[feature] {key}: {n}^2 u8 pair made in {time.perf_counter() - t0:.2f} s")
         runs = {}
-        for where in (("cuda", "cpu") if n == sizes[0] else ("cuda",)):
+        cases = [("cuda", "bf16"), ("cuda", "f32")] + ([("cpu", "f32")] if pair == cpu_pair else [])
+        for where, route in cases:
             reg = FeatureRegistrator(device=dev if where == "cuda" else "cpu")
             reg.num_pyr_lvl, reg.num_iterations, reg.tile_size, reg.use_dog = 3, 3, 1000, True
-            reg.ref_img, reg.mov_img = ref, mov
-            profile = where == "cuda" and n != sizes[0]
+            runs[where, route], out = feature_register(reg, ref, mov, counters, f"feature_{key} {route}",
+                                                       FLOAT32_ROUTE if route == "f32" else {})
+            res[f"{key}_{where}_{route}_s"] = out["s"]
             if where == "cuda":
-                torch.cuda.empty_cache()
-                torch.cuda.reset_peak_memory_stats(dev)
-                counters.reset()
-            buf = io.StringIO()
-            if profile:
-                os.environ["MICROALIGNER_TPU_PROFILE"] = "1"
-            try:
-                with contextlib.redirect_stdout(buf):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    runs[where] = reg.register()
-                    torch.cuda.synchronize()
-                    secs = time.perf_counter() - t0
-            finally:
-                os.environ.pop("MICROALIGNER_TPU_PROFILE", None)
-            res[f"{key}_{where}_s"] = secs
-            if where == "cuda":
-                res[f"{key}_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
-                launches.append(counters.read(f"feature_{key}", ("K1",)))
-            if profile:
-                stages = {}
-                for name, t in re.findall(r"^\[profile\] (.+): ([0-9.]+)s$", buf.getvalue(), re.M):
-                    stages[name] = round(stages.get(name, 0.0) + float(t), 4)
-                res[f"{key}_stages_s"] = stages
-                log(f"[feature] {key} stage timers (summed over the iterations): {stages}")
-        err_truth = corner_err(runs["cuda"], truth, (n, n))
-        res[f"{key}_tmat"] = runs["cuda"].tolist()
-        res[f"{key}_truth_err_px"] = err_truth
-        line = (f"[feature] {key}: FeatureRegistrator on the card {res[f'{key}_cuda_s']:.2f} s, peak device "
-                f"memory {res[f'{key}_peak_gib']:.2f} GiB; corners vs truth {err_truth:.4f} px")
-        if "cpu" in runs:
-            res[f"{key}_card_vs_cpu_px"] = corner_err(runs["cuda"], runs["cpu"], (n, n))
-            line += f"; CPU run {res[f'{key}_cpu_s']:.2f} s, card vs CPU {res[f'{key}_card_vs_cpu_px']:.2e} px"
+                launches.append(out["launches"])
+                res[f"{key}_{route}_peak_gib"] = out["peak_gib"]
+        for route in ("bf16", "f32"):
+            res[f"{key}_{route}_tmat"] = runs["cuda", route].tolist()
+            res[f"{key}_{route}_truth_err_px"] = corner_err(runs["cuda", route], truth, (n, n))
+        res[f"{key}_bf16_vs_f32_px"] = corner_err(runs["cuda", "bf16"], runs["cuda", "f32"], (n, n))
+        line = (f"[feature] {key}: FeatureRegistrator on the card, bf16 route {res[f'{key}_cuda_bf16_s']:.2f} s, "
+                f"float32 route {res[f'{key}_cuda_f32_s']:.2f} s, peak device memory "
+                f"{res[f'{key}_bf16_peak_gib']:.2f} / {res[f'{key}_f32_peak_gib']:.2f} GiB; corners vs truth "
+                f"{res[f'{key}_bf16_truth_err_px']:.4f} / {res[f'{key}_f32_truth_err_px']:.4f} px; routes "
+                f"{res[f'{key}_bf16_vs_f32_px']:.4f} px apart")
+        if ("cpu", "f32") in runs:
+            res[f"{key}_card_vs_cpu_px"] = corner_err(runs["cuda", "f32"], runs["cpu", "f32"], (n, n))
+            line += (f"; CPU run (float32 route) {res[f'{key}_cpu_f32_s']:.2f} s, card vs CPU "
+                     f"{res[f'{key}_card_vs_cpu_px']:.2e} px")
         log(line)
-        require(err_truth < 0.5, f"feature {key}: {err_truth} px from the truth")
-        if "cpu" in runs:
+        for route in ("bf16", "f32"):
+            err = res[f"{key}_{route}_truth_err_px"]
+            require(err < 0.5, f"feature {key} {route}: {err} px from the truth")
+        if ("cpu", "f32") in runs:
             require(res[f"{key}_card_vs_cpu_px"] < 1e-3, f"feature {key}: card vs CPU {res[f'{key}_card_vs_cpu_px']} px")
         del ref, mov
     res["launches"] = {k: sum(run[k] for run in launches) for k in launches[0]}
@@ -2049,7 +2054,9 @@ def auto_feature_pass(dev, rng, counters: "Counters", h=4096) -> dict:
 
 ROUTE_VARIABLES = ("FLOW_DENSE", "FLOW_TILE_BATCH", "WHOLE_REGISTER", "CARRY_LEVEL", "FUSED_REGISTER",
                    "FUSED_LEVEL", "FEATURE_DENSE", "FEATURE_DENSE_MAX_MPIX", "DAISY_NRM", "FLOW_BAND_ROWS",
-                   "AGG_PRECISION", "R_BF16")
+                   "AGG_PRECISION", "R_BF16", "MATCH_F32", "DAISY_EXACT")
+# FeatureReg's float32 route on the card (the CPU's only route): the card-against-CPU checks run on it
+FLOAT32_ROUTE = {"MATCH_F32": "1", "DAISY_EXACT": "1"}
 # the per-tile feature path's timed FeatureReg run: the largest plane the repo runs
 FEATURE_PER_TILE_N = 20480
 
@@ -2322,14 +2329,14 @@ def near_tie_census():
     top2, match_descriptors = match._top2, registrator.match_descriptors
     last, old = {}, []
 
-    def spy_top2(query, train, t_valid, chunk):
-        out = top2(query, train, t_valid, chunk)
+    def spy_top2(query, train, t_valid, chunk, *args):
+        out = top2(query, train, t_valid, chunk, *args)
         if query.dtype == torch.float32:
             last.update(out=out, t_valid=t_valid)
         return out
 
-    def spy_match(des_ref, des_mov, ref_valid, mov_valid, *args):
-        good, idx = match_descriptors(des_ref, des_mov, ref_valid, mov_valid, *args)
+    def spy_match(des_ref, des_mov, ref_valid, mov_valid, *args, **kwargs):
+        good, idx = match_descriptors(des_ref, des_mov, ref_valid, mov_valid, *args, **kwargs)
         d1, d2, _, qn, tn = last.pop("out")
         margin = (d1 - 0.25 * d2).abs() / (qn + torch.amax(torch.where(last["t_valid"], tn, 0.0)))
         old.append(int(((margin <= 2.0**-14) & mov_valid).sum()))
@@ -2349,8 +2356,9 @@ def routes_strict(dev, rng, counters: "Counters", sizes=(1024, 4096, 20480), n_b
     """FeatureReg under ``MICROALIGNER_TPU_DAISY_NRM=0`` (the reference's raw
     DAISY descriptors) at config 1's parameters on pairs moved by its
     ``t_true``: at ``sizes[0]`` with and without DoG on the card and on the
-    CPU (corners within 1e-3 px of each other; with DoG, whatever the CPU's
-    outcome is, the card's is the same); at ``sizes[1]`` without DoG within
+    CPU, both on FeatureReg's float32 route (corners within 1e-3 px of each
+    other; with DoG, whatever the CPU's outcome is, the card's is the
+    same); at ``sizes[1]`` without DoG within
     0.5 px of the truth; at ``sizes[2]`` without DoG timed beside the
     unit-norm route (strict, unit-norm, strict), with peak device memory and
     the near-ties of each ``match_descriptors`` call.  Every card run
@@ -2369,12 +2377,12 @@ def routes_strict(dev, rng, counters: "Counters", sizes=(1024, 4096, 20480), n_b
         ref = minmax_normalize_u8(texture(rng, n, n, dev)).cpu().numpy()
         return ref, np.clip(np.round(warp_affine_scipy(ref, t_true)), 0, 255).astype(np.uint8)
 
-    def register(ref, mov, where, use_dog, label, nrm="0"):
+    def register(ref, mov, where, use_dog, label, nrm="0", variables=None):
         reg = FeatureRegistrator(device=dev if where == "cuda" else "cpu")
         reg.num_pyr_lvl, reg.num_iterations, reg.tile_size, reg.use_dog = 3, 3, 1000, use_dog
         reg.ref_img, reg.mov_img = ref, mov
         out = {}
-        with routes(DAISY_NRM=nrm), near_tie_census() as census:
+        with routes(DAISY_NRM=nrm, **(variables or {})), near_tie_census() as census:
             if where == "cuda":
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats(dev)
@@ -2397,8 +2405,8 @@ def routes_strict(dev, rng, counters: "Counters", sizes=(1024, 4096, 20480), n_b
     ref, mov = pair(sizes[0])
     for use_dog in (False, True):
         key = f"{sizes[0]}_{'dog' if use_dog else 'no_dog'}"
-        card, res[key] = register(ref, mov, "cuda", use_dog, key)
-        cpu, res[key + "_cpu"] = register(ref, mov, "cpu", use_dog, key + " cpu")
+        card, res[key] = register(ref, mov, "cuda", use_dog, key, variables=FLOAT32_ROUTE)
+        cpu, res[key + "_cpu"] = register(ref, mov, "cpu", use_dog, key + " cpu", variables=FLOAT32_ROUTE)
         diff = corner_err(card, cpu, ref.shape)
         res[key]["card_vs_cpu_px"] = diff
         log(f"[routes] strict FeatureReg {key}: card {res[key]['s']:.2f} s, CPU {res[key + '_cpu']['s']:.2f} s; "
@@ -2580,6 +2588,239 @@ def precision_route(dev, rng, counters: "Counters") -> dict:
                                      kernels=("K1", "K5") + TYPED)
     typed_only("precision cli_20480", res["cli_20480"]["launches"])
     res["launches"] = {k: sum(r["launches"].get(k, 0) for r in res.values()) for k in res["cli_20480"]["launches"]}
+    return res
+
+
+# -- phase 13 --------------------------------------------------------------
+
+# the JAX package's bars for its bf16 feature route on its own hardware
+# (scripts/tpu_parity_check.py::_feature): descriptors, good-match sets, nearest indices, registers
+FEATURE_DESC_MAX, FEATURE_JACCARD_MIN, FEATURE_AGREE_MIN, FEATURE_TRUTH_PX = 5e-3, 0.9, 0.99, 0.5
+# one route against another: the card's bf16 route against the port's CPU run on that route
+FEATURE_ROUTE_CPU_PX = 0.05
+# the t_true of that script and of config 1 (bench.py::bench_feature)
+FEATURE_T_TRUE = np.array([[1.0004, 0.0003, 6.4], [-0.0003, 1.0004, -9.1]])
+FEATURE_ROUTES = (("bf16", {}), ("f32", FLOAT32_ROUTE))
+
+
+def feature_pair(rng, n, dev):
+    """A u8 texture and its copy moved by ``FEATURE_T_TRUE`` (scipy's
+    bilinear warp), as numpy arrays."""
+    from microaligner_tpu_torch.ops.filters import minmax_normalize_u8
+
+    ref = minmax_normalize_u8(texture(rng, n, n, dev)).cpu().numpy()
+    return ref, np.clip(np.round(warp_affine_scipy(ref, FEATURE_T_TRUE)), 0, 255).astype(np.uint8)
+
+
+def feature_register(reg, ref, mov, counters: "Counters", label: str, variables: dict, profile=False) -> tuple:
+    """``reg.register()`` on ``ref``/``mov`` under ``variables`` with each
+    match call's near-ties counted, the launches read around it on the card
+    (K1 must launch), the stage timers summed when ``profile``.  Returns
+    (matrix, {s, near_ties, launches?, peak_gib?, stages?, rounds})."""
+    card = reg.device.type == "cuda"
+    reg.ref_img, reg.mov_img = ref, mov
+    out = {}
+    buf = io.StringIO()
+    with routes(**variables), near_tie_census() as census:
+        if card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(reg.device)
+            counters.reset()
+        if profile:
+            os.environ["MICROALIGNER_TPU_PROFILE"] = "1"
+        try:
+            with contextlib.redirect_stdout(buf):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tmat = reg.register()
+                torch.cuda.synchronize()
+                out["s"] = time.perf_counter() - t0
+        finally:
+            os.environ.pop("MICROALIGNER_TPU_PROFILE", None)
+        if card:
+            out["launches"] = counters.read(label, ("K1",))
+            out["peak_gib"] = torch.cuda.max_memory_allocated(reg.device) / 2**30
+    out["near_ties"] = census
+    # each round's good matches and valid rows of the moving side, level by level
+    out["rounds"] = [[int(a), int(b)] for a, b in re.findall(r"Good matches (\d+) / (\d+)", buf.getvalue())]
+    if profile:
+        stages = {}
+        for name, t in re.findall(r"^\[profile\] (.+): ([0-9.]+)s$", buf.getvalue(), re.M):
+            stages[name] = round(stages.get(name, 0.0) + float(t), 4)
+        out["stages"] = stages
+    return tmat, out
+
+
+def feature_parity_1024(dev, rng, counters: "Counters", n=1024) -> dict:
+    """``scripts/tpu_parity_check.py::_feature`` without cv2, both routes in
+    one process: ``find_features`` (tile 1000, no DoG) of a 1024^2 pair and
+    ``knn_top2`` mov -> ref, then ``FeatureRegistrator`` (2 levels, 3
+    iterations, tile 1000, DoG) on the pair.  Bars: the descriptors of the
+    reference rows valid on both routes within 5e-3, the good-match sets
+    (Lowe 0.5 on the moving rows valid on both) of Jaccard index above 0.9,
+    the nearest indices of the matches both keep equal on more than 99% of
+    them, each route's register within 0.5 px of the truth (at the corners,
+    and in translation); then the port's CPU run on the bf16 route (its
+    route reader asked for the card's route) within 0.05 px of the card's
+    at the corners."""
+    from microaligner_tpu_torch.features import FeatureRegistrator, registrator
+    from microaligner_tpu_torch.features.match import knn_top2
+    from microaligner_tpu_torch.features.tile_features import find_features
+
+    truth = inverse2x3(FEATURE_T_TRUE)
+    ref, mov = feature_pair(rng, n, dev)
+    got, res = {}, {}
+
+    def configured(device):
+        reg = FeatureRegistrator(device=device)
+        reg.num_pyr_lvl, reg.num_iterations, reg.tile_size, reg.use_dog = 2, 3, 1000, True
+        return reg
+
+    for name, variables in FEATURE_ROUTES:
+        with routes(**variables):
+            fr, fm = find_features(ref, 1000, device=dev), find_features(mov, 1000, device=dev)
+            d1, d2, i1 = knn_top2(fm.descriptors, fr.descriptors, fm.valid, fr.valid)
+        got[name] = {k: v.cpu().numpy() for k, v in (("desc", fr.descriptors), ("valid", fr.valid),
+                                                      ("qvalid", fm.valid), ("d1", d1), ("d2", d2), ("i1", i1))}
+        got[name]["tmat"], res[name] = feature_register(configured(dev), ref, mov, counters,
+                                                        f"feature precision {n} {name}", variables)
+        res[name]["truth_err_px"] = corner_err(got[name]["tmat"], truth, (n, n))
+        res[name]["translation_err_px"] = float(np.abs(got[name]["tmat"][:, 2] - truth[:, 2]).sum())
+    p, x = got["bf16"], got["f32"]
+    both = p["valid"] & x["valid"]
+    res["descriptor_max_abs_diff"] = float(np.abs(p["desc"] - x["desc"])[both].max())
+    qboth = p["qvalid"] & x["qvalid"]
+    gp, gx = ((g["d1"] < 0.25 * g["d2"]) & qboth for g in (p, x))
+    gboth = gp & gx
+    res["good"] = [int(gp.sum()), int(gx.sum()), int(gboth.sum())]
+    res["jaccard"] = float(gboth.sum() / max((gp | gx).sum(), 1))
+    res["index_agreement"] = float((p["i1"][gboth] == x["i1"][gboth]).mean()) if gboth.any() else 1.0
+    res["cross_term_d1_max_diff"] = float(np.abs(p["d1"] - x["d1"])[qboth].max())
+    # the port's CPU run on the bf16 route, forced through the route reader's device argument
+    read = registrator._read_route
+    registrator._read_route = lambda device: read(dev)
+    try:
+        cpu_tmat, res["cpu_bf16"] = feature_register(configured("cpu"), ref, mov, counters,
+                                                     f"feature precision {n} bf16 cpu", {})
+    finally:
+        registrator._read_route = read
+    res["card_vs_cpu_bf16_px"] = corner_err(p["tmat"], cpu_tmat, (n, n))
+    res["bf16_vs_f32_px"] = corner_err(p["tmat"], x["tmat"], (n, n))
+    log(f"[feature precision] {n}^2 pair, bf16 route against the float32 route: descriptor max abs diff "
+        f"{res['descriptor_max_abs_diff']:.3e} on {int(both.sum())} rows valid on both; good matches (bf16, f32, "
+        f"both) {res['good']}, Jaccard {res['jaccard']:.4f}, nearest index agreement on both-good "
+        f"{res['index_agreement']:.4f}; knn d1 max diff {res['cross_term_d1_max_diff']:.3e}")
+    for name in ("bf16", "f32"):
+        r = res[name]
+        log(f"[feature precision] {n}^2 register, {name} route: {r['s']:.2f} s, corners vs truth "
+            f"{r['truth_err_px']:.4f} px, translation error {r['translation_err_px']:.4f} px; near-ties "
+            f"{r['near_ties']}; rounds {r['rounds']}")
+    log(f"[feature precision] {n}^2 bf16 route, card against the port's CPU run on it: "
+        f"{res['card_vs_cpu_bf16_px']:.3e} px (CPU {res['cpu_bf16']['s']:.2f} s; near-ties card "
+        f"{res['bf16']['near_ties']}, CPU {res['cpu_bf16']['near_ties']}); routes {res['bf16_vs_f32_px']:.4f} px apart")
+    require(res["descriptor_max_abs_diff"] < FEATURE_DESC_MAX, f"feature precision: descriptors {res['descriptor_max_abs_diff']}")
+    require(res["jaccard"] > FEATURE_JACCARD_MIN, f"feature precision: Jaccard {res['jaccard']}")
+    require(res["index_agreement"] > FEATURE_AGREE_MIN, f"feature precision: index agreement {res['index_agreement']}")
+    for name in ("bf16", "f32"):
+        for key in ("truth_err_px", "translation_err_px"):
+            require(res[name][key] < FEATURE_TRUTH_PX, f"feature precision {name}: {key} {res[name][key]}")
+    require(res["card_vs_cpu_bf16_px"] < FEATURE_ROUTE_CPU_PX,
+            f"feature precision: bf16 card vs CPU {res['card_vs_cpu_bf16_px']} px")
+    return res
+
+
+def feature_routes_at(dev, rng, counters: "Counters", n: int) -> dict:
+    """Config 1 (3 levels, 3 iterations, tile 1000, DoG) on an ``n``^2 pair
+    moved by ``FEATURE_T_TRUE``, on the bf16 and the float32 route, stage
+    timers on: each within 0.5 px of the truth; the routes' corner distance,
+    each level's find and match times, each match call's near-ties and the
+    valid descriptor rows of each level (the reference's, and the moving
+    side's each round)."""
+    from microaligner_tpu_torch.features import FeatureRegistrator
+
+    truth = inverse2x3(FEATURE_T_TRUE)
+    t0 = time.perf_counter()
+    ref, mov = feature_pair(rng, n, dev)
+    res = {"pair_s": time.perf_counter() - t0}
+    tmats = {}
+    for name, variables in FEATURE_ROUTES:
+        reg = FeatureRegistrator(device=dev)
+        reg.num_pyr_lvl, reg.num_iterations, reg.tile_size, reg.use_dog = 3, 3, 1000, True
+        tmats[name], r = feature_register(reg, ref, mov, counters, f"feature precision {n} {name}", variables,
+                                          profile=True)
+        r["ref_valid_rows"] = {f"lvl{f}": [feats.num_valid, int(feats.valid.numel())]
+                               for f, feats in zip(reg._factors, reg._ref_pyr_features)}
+        r["truth_err_px"] = corner_err(tmats[name], truth, (n, n))
+        res[name] = r
+        del reg
+        torch.cuda.empty_cache()
+        stages = r["stages"]
+        per_level = {f"lvl{f}": [stages.get(f"feature lvl{f} find"), stages.get(f"feature lvl{f} match")]
+                     for f in (8, 4, 2)}
+        log(f"[feature precision] {n}^2 FeatureRegistrator, {name} route: {r['s']:.2f} s, peak "
+            f"{r['peak_gib']:.2f} GiB, corners vs truth {r['truth_err_px']:.4f} px; find / match s a level "
+            f"{per_level}; near-ties {r['near_ties']}; reference valid rows / slots {r['ref_valid_rows']}; "
+            f"moving side's good / valid rows a round {r['rounds']}")
+        require(r["truth_err_px"] < FEATURE_TRUTH_PX, f"feature precision {n} {name}: {r['truth_err_px']} px")
+    res["bf16_vs_f32_px"] = corner_err(tmats["bf16"], tmats["f32"], (n, n))
+    log(f"[feature precision] {n}^2: the routes' matrices {res['bf16_vs_f32_px']:.4f} px apart at the corners")
+    res["launches"] = {k: res["bf16"]["launches"][k] + res["f32"]["launches"][k] for k in res["bf16"]["launches"]}
+    return res
+
+
+def cross_term_timing(dev, gen, slots: int, reps=10) -> dict:
+    """The knn cross term alone at level 2's shape of a 20480^2 register:
+    one chunk of queries (as many as 2^27 distance entries allow) against
+    ``slots`` train rows, bf16 operands with float32 output beside the
+    float32 product (TF32 off), with CUDA events; each beside its bound,
+    the larger of its bytes (operands read once, the float32 output written
+    once) over 3.35 TB/s and its multiply-adds over the 989 TFLOP/s of the
+    bf16 tensor cores or the 67 TFLOP/s of float32."""
+    from microaligner_tpu_torch.features.match import _CHUNK_ELEMS
+    from microaligner_tpu_torch.ops.filters import ieee_float32, product_f32
+
+    rows = _CHUNK_ELEMS // slots
+    train = torch.randn(slots, 200, device=dev, generator=gen)
+    train /= train.norm(dim=1, keepdim=True)
+    query = train[:rows].clone()
+    qb, tb = query.to(torch.bfloat16), train.to(torch.bfloat16)
+    flops = 2.0 * rows * slots * 200
+    out_bytes = 4.0 * rows * slots
+
+    def f32():
+        with ieee_float32():
+            return torch.matmul(query, train.T)
+
+    res = {"rows": rows, "slots": slots}
+    for name, fn, itemsize, peak in (("bf16", lambda: product_f32(qb, tb.T), 2, 989e12), ("f32", f32, 4, 67e12)):
+        ms = cuda_ms(fn, reps)
+        bytes_ms = (itemsize * 200.0 * (rows + slots) + out_bytes) / 3.35e12 * 1e3
+        ops_ms = flops / peak * 1e3
+        res[name] = {"ms": ms, "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                     "chunks_ms": ms * math.ceil(slots / rows)}
+    diff = (product_f32(qb, tb.T) - f32()).abs().max()
+    res["bf16_vs_f32_max_abs"] = float(diff)
+    log(f"[feature precision] knn cross term alone, {rows} x 200 queries against {slots} rows (one chunk of level 2 "
+        f"at 20480^2): bf16 {res['bf16']['ms']:.4f} ms (bound {res['bf16']['bound_ms']:.4f}, "
+        f"{res['bf16']['bound_by']}), float32 {res['f32']['ms']:.4f} ms (bound {res['f32']['bound_ms']:.4f}, "
+        f"{res['f32']['bound_by']}); all {math.ceil(slots / rows)} chunks {res['bf16']['chunks_ms']:.1f} / "
+        f"{res['f32']['chunks_ms']:.1f} ms; max |bf16 - f32| {res['bf16_vs_f32_max_abs']:.2e}")
+    return res
+
+
+def feature_precision(dev, counters: "Counters") -> dict:
+    """Phase 13: FeatureReg's bf16 operand route (``MATCH_F32`` and
+    ``DAISY_EXACT`` unset on the card) against its float32 route (both
+    ``1``): ``feature_parity_1024``, ``feature_routes_at`` 4096^2 and
+    20480^2, and ``cross_term_timing``.  A generator of its own."""
+    rng = np.random.default_rng(20261018)
+    res = {"parity_1024": feature_parity_1024(dev, rng, counters)}
+    for n in (4096, 20480):
+        res[f"routes_{n}"] = feature_routes_at(dev, rng, counters, n)
+    slots = res["routes_20480"]["bf16"]["ref_valid_rows"]["lvl2"][1]
+    res["cross_term"] = cross_term_timing(dev, device_generator(rng, dev), slots)
+    runs = [res["parity_1024"]["bf16"], res["parity_1024"]["f32"]] + [res[f"routes_{n}"] for n in (4096, 20480)]
+    res["launches"] = {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
     return res
 
 
@@ -3153,6 +3394,7 @@ def main():
     report["auto"] = auto_feature_pass(dev, rng, counters)
     report.update(mesh_phase(dev, rng, counters))
     report["precision_route"] = precision_route(dev, rng, counters)
+    report["feature_precision"] = feature_precision(dev, counters)
 
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start
@@ -3172,7 +3414,7 @@ def main():
     # each path's launches, counted from 0 just before it and read just after
     paths = ("main", "unpaired", "zstack", "cli_4096", "routes_parity", "routes_per_tile_20480", "routes_drivers",
              "routes_cli_4096", "routes_feature", "routes_strict", "cli_20480", "feature", "chained_4096", "chained_20480", "auto",
-             "mesh_step", "mesh_step_parity", "mesh_engines", "mesh_groups", "precision_route")
+             "mesh_step", "mesh_step_parity", "mesh_engines", "mesh_groups", "precision_route", "feature_precision")
     launches = {k: sum(report[path]["launches"].get(k, 0) for path in paths) for k in sources}
     for k in TYPED:  # a wrapper's launches less its bf16 entry's are its float32 entry's
         launches[k.split()[0]] -= launches[k]

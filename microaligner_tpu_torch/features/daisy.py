@@ -8,11 +8,12 @@ points, 8 orientation bins, bilinear interpolation, no keypoint orientation)
 Pipeline: a slight pre-smooth, x/y gradients, 8 rectified orientation
 layers, incrementally smoothed cubes (one sigma a ring), then bilinear
 gathers at the 25 grid points around each keypoint.  The ring blurs are
-float32 operator products with TF32 off (``ops/filters.py::gaussian_blur_mxu``).
-The JAX package asks for DEFAULT precision for them on every backend
-(bf16 operands on its TPU; XLA's CPU multiplies in float32) unless
-``MICROALIGNER_TPU_DAISY_EXACT=1``; the port keeps float32 on the card too
-(a stated departure: that variable is not ported yet).
+operator products (``ops/filters.py::gaussian_blur_mxu``) whose operands
+are float32 or bf16 (float32 sums either way): the JAX package asks for
+DEFAULT precision for them on every backend (bf16 operands on its TPU;
+XLA's CPU multiplies in float32) unless ``MICROALIGNER_TPU_DAISY_EXACT=1``,
+and the port follows that rule by device (:func:`daisy_operand_dtype`).
+The short pre-smooth stays float32 on both routes.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import functools
 import numpy as np
 import torch
 
+from microaligner_tpu_torch.features.routes import daisy_operand_dtype
 from microaligner_tpu_torch.ops.filters import _reflect101_index, gaussian_blur_mxu, gaussian_kernel
 
 __all__ = ["daisy_at_points", "DAISY_DIM"]
@@ -71,16 +73,17 @@ def _ksize(sigma: float) -> int:
     return int(round(sigma * 4)) * 2 + 1
 
 
-def _blur_chw(x: torch.Tensor, sigma: float) -> torch.Tensor:
+def _blur_chw(x: torch.Tensor, sigma: float, operand_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Gaussian blur of a (C, H, W) stack along H, then W (REFLECT_101).
 
-    The ring sigmas (ksize 29..63) are operator products; short kernels are
-    shifted-slice sums, one multiply and one add a tap in ascending order,
-    as the JAX package writes them.
+    The ring sigmas (ksize 29..63) are operator products with
+    ``operand_dtype`` operands; short kernels are float32 shifted-slice
+    sums, one multiply and one add a tap in ascending order, as the JAX
+    package writes them.
     """
     ksize = _ksize(sigma)
     if ksize >= 13 and min(x.shape[-2:]) > (ksize - 1) // 2:
-        return gaussian_blur_mxu(x, ksize, sigma)
+        return gaussian_blur_mxu(x, ksize, sigma, operand_dtype)
     taps = gaussian_kernel(ksize, sigma).tolist()
     r = (ksize - 1) // 2
 
@@ -96,8 +99,9 @@ def _blur_chw(x: torch.Tensor, sigma: float) -> torch.Tensor:
     return corr(corr(x, 1), 2)
 
 
-def _orientation_cubes(img: torch.Tensor) -> torch.Tensor:
-    """(H, W) image -> (8, Q_RADIUS, H, W) smoothed rectified gradient layers."""
+def _orientation_cubes(img: torch.Tensor, operand_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(H, W) image -> (8, Q_RADIUS, H, W) smoothed rectified gradient
+    layers, the ring blurs' products on ``operand_dtype`` operands."""
     f = _blur_chw(img.to(torch.float32)[None], 0.5)[0]
     h, w = f.shape
     fp = f.index_select(0, _reflect101_index(h, 1, f.device)).index_select(
@@ -112,7 +116,7 @@ def _orientation_cubes(img: torch.Tensor) -> torch.Tensor:
     cubes = []
     cur = layers
     for inc in _increments():
-        cur = _blur_chw(cur, inc)
+        cur = _blur_chw(cur, inc, operand_dtype)
         cubes.append(cur)
     # orientation-major (8, Q, H, W): the (8, Q*H*W) gather table without a copy
     return torch.stack(cubes, dim=1)
@@ -157,12 +161,16 @@ def normalize_descriptors(desc: torch.Tensor) -> torch.Tensor:
     return desc / torch.clamp_min(torch.linalg.vector_norm(desc, dim=-1, keepdim=True), 1e-8)
 
 
-def daisy_at_points(img: torch.Tensor, coords: torch.Tensor, normalize: bool = True) -> torch.Tensor:
+def daisy_at_points(img: torch.Tensor, coords: torch.Tensor, normalize: bool = True,
+                    operand_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Descriptors (K, 200) of ``img`` at ``coords`` (K, 2) [x, y], sampled
     at exactly the given coords.  ``normalize=True`` (the JAX package's
     default) L2-normalizes each descriptor; ``False`` is the reference's
-    NRM_NONE."""
+    NRM_NONE.  ``operand_dtype`` is the blur products' (float32 or bf16);
+    None reads :func:`daisy_operand_dtype` for ``img``'s device."""
     img = torch.as_tensor(img)
     coords = torch.as_tensor(coords, dtype=torch.float32).to(img.device)
-    desc = _gather_descriptors(_orientation_cubes(img), coords)
+    if operand_dtype is None:
+        operand_dtype = daisy_operand_dtype(img.device)
+    desc = _gather_descriptors(_orientation_cubes(img, operand_dtype), coords)
     return normalize_descriptors(desc) if normalize else desc

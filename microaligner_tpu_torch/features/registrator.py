@@ -32,11 +32,16 @@ every ``register``:
   check (``_check_if_valid_transform``), and an accepted round realigns the
   original mov by the float64 product of the accepted matrices.
 
-Every route reads ``MICROALIGNER_TPU_DAISY_NRM`` once a ``register``
-(``0``: the reference's raw DAISY descriptors; unit-norm ones otherwise):
-the reference pyramid's features and every round of the moving side are
-found in that one mode, and cached reference features found in the other
-mode are found again.
+Every route reads the JAX package's feature variables once a
+``register`` (``features/routes.py``): ``MICROALIGNER_TPU_DAISY_NRM``
+(``0``: the reference's raw DAISY descriptors; unit-norm ones otherwise),
+``MICROALIGNER_TPU_DAISY_EXACT`` (the operands of DAISY's blur products)
+and ``MICROALIGNER_TPU_MATCH_F32`` (the knn cross term's), the last two by
+the registrator's device: float32 on the CPU, bf16 operands with float32
+sums on the card unless the variable is ``1``.  The reference pyramid's
+features and every round of the moving side are found and matched in that
+one route, and cached reference features found in another DAISY mode or
+route are found again.
 """
 
 from __future__ import annotations
@@ -49,10 +54,10 @@ import torch
 
 from microaligner_tpu_torch.features.match import match_descriptors
 from microaligner_tpu_torch.features.ransac import _ransac_core
+from microaligner_tpu_torch.features.routes import daisy_normalize, daisy_operand_dtype, match_operand_dtype
 from microaligner_tpu_torch.features.tile_features import (
     HALO,
     Features,
-    daisy_normalize,
     features_per_tile,
     find_features,
     find_features_tiled,
@@ -111,13 +116,14 @@ def _valid_transform_traced(est3: torch.Tensor, img_shape) -> torch.Tensor:
 
 
 def _level_align_body(ref_img, ref_feats: Features, mov_img, grid: TileGrid, k: int,
-                      tile_size: int, num_iterations: int, use_dog: bool, normalize: bool,
+                      tile_size: int, num_iterations: int, use_dog: bool, route: tuple,
                       label: str = "feature"):
     """One pyramid level's whole iterative alignment on the device.
 
     Returns (composed 2x3 float32, aligned image, diagnostics
     (num_iterations, 5) rows [n_good, n_total, mi_after, mi_before,
-    accepted]); ``normalize`` is the DAISY mode of ``ref_feats``.  Under
+    accepted]); ``route`` is (DAISY mode, DAISY operand dtype) of
+    ``ref_feats`` and the knn's operand dtype (``_read_route``).  Under
     ``MICROALIGNER_TPU_PROFILE`` each round's four
     steps are timed as ``{label} find`` (DoG, FAST, DAISY), ``match`` (knn
     and the ratio test), ``ransac`` and ``gate`` (the candidate warp, both
@@ -125,14 +131,17 @@ def _level_align_body(ref_img, ref_feats: Features, mov_img, grid: TileGrid, k: 
     dev = mov_img.device
     eye3 = torch.eye(3, dtype=torch.float32, device=dev)
     dtype = mov_img.dtype
+    normalize, daisy_dtype, match_dtype = route
     ref_gate_dog = dog_traced(ref_img, True)  # the MI gate always DoGs
     composed, aligned = eye3, mov_img
     rows = []
     for _ in range(num_iterations):
         with stage_timer(f"{label} find", dev):
-            coords, desc, valid, _resp = find_features_tiled(dog_traced(aligned, use_dog), grid, k, normalize)
+            coords, desc, valid, _resp = find_features_tiled(dog_traced(aligned, use_dog), grid, k, normalize,
+                                                             daisy_dtype)
         with stage_timer(f"{label} match", dev):
-            good, ref_idx = match_descriptors(ref_feats.descriptors, desc, ref_feats.valid, valid)
+            good, ref_idx = match_descriptors(ref_feats.descriptors, desc, ref_feats.valid, valid,
+                                              operand_dtype=match_dtype)
         with stage_timer(f"{label} ransac", dev):
             dst = ref_feats.coords[ref_idx]
             n_good = torch.sum(good)
@@ -178,13 +187,20 @@ def _level_grid(shape, tile_size: int):
     return grid, features_per_tile(grid)
 
 
-def _calc_ref_fused(img: torch.Tensor, factors, tile_size: int, use_dog: bool, normalize: bool):
+def _read_route(device) -> tuple:
+    """(DAISY mode, DAISY operand dtype, knn operand dtype) of one
+    ``register`` on ``device``, from the JAX package's variables."""
+    return daisy_normalize(), daisy_operand_dtype(device), match_operand_dtype(device)
+
+
+def _calc_ref_fused(img: torch.Tensor, factors, tile_size: int, use_dog: bool, normalize: bool,
+                    daisy_dtype: torch.dtype):
     """Reference side: pyramid, per-level DoG and tiled features."""
     pyr = _build_pyr_levels(img, factors)
     feats = []
     for lvl in pyr:
         grid, k = _level_grid(lvl.shape, tile_size)
-        feats.append(Features(*find_features_tiled(dog_traced(lvl, use_dog), grid, k, normalize)))
+        feats.append(Features(*find_features_tiled(dog_traced(lvl, use_dog), grid, k, normalize, daisy_dtype)))
     return pyr, feats
 
 
@@ -195,7 +211,7 @@ def _tscale(scale: float, device) -> torch.Tensor:
 
 
 def _register_fused(ref_pyr, ref_feats, mov_img: torch.Tensor, factors, tile_size: int,
-                    num_iterations: int, use_dog: bool, normalize: bool):
+                    num_iterations: int, use_dog: bool, route: tuple):
     """The whole multi-level registration on the device (reference
     feature_registrator.py:75-116).  Returns (2x3 float32, diagnostics
     (n_lvl, num_iterations, 5)), both on the device."""
@@ -214,7 +230,7 @@ def _register_fused(ref_pyr, ref_feats, mov_img: torch.Tensor, factors, tile_siz
             grid, k = _level_grid(mov_lvl.shape, tile_size)
             tmat2, _aligned, diag = _level_align_body(
                 ref_pyr[i], ref_feats[i], mov_lvl, grid, k, tile_size, num_iterations, use_dog,
-                normalize, f"feature lvl{factor}")
+                route, f"feature lvl{factor}")
         hom = torch.cat([tmat2, torch.tensor([[0.0, 0.0, 1.0]], device=dev)], dim=0)
         fullscale.append(hom * _tscale(float(factor), dev))
         diags.append(diag)
@@ -241,7 +257,9 @@ class FeatureRegistrator:
         self._ref_pyr_features: List[Features] = []
         self._ref_img_pyr: List[torch.Tensor] = []
         self._factors = [8, 4, 2]
-        self._normalize = True  # the DAISY mode of the cached reference features
+        # (DAISY mode, DAISY operand dtype, knn operand dtype) of the last register: the cached
+        # reference features' DAISY route and the knn's
+        self._route = None
 
     @property
     def ref_img(self):
@@ -301,18 +319,21 @@ class FeatureRegistrator:
         return (os.environ.get("MICROALIGNER_TPU_FUSED_REGISTER", "1") != "0"
                 and os.environ.get("MICROALIGNER_TPU_FUSED_LEVEL", "1") != "0")
 
-    def calc_ref_img_features(self):
-        self._normalize = daisy_normalize()
+    def calc_ref_img_features(self, route: tuple | None = None):
+        """The reference pyramid and its features, in ``route`` (None: the
+        variables as they are now)."""
+        self._route = _read_route(self.device) if route is None else route
+        normalize, daisy_dtype, _ = self._route
         if not self._fused_register_enabled():
             self._ref_img_pyr, self._factors = self._generate_img_pyr(self._on_device(self._ref_img))
             self._ref_pyr_features = [find_features(dog(lvl, self.use_dog), self.tile_size,
-                                                    normalize=self._normalize)
+                                                    normalize=normalize, daisy_dtype=daisy_dtype)
                                       for lvl in self._ref_img_pyr]
             return
         self._factors = self._pyr_factors()
         with stage_timer("feature reference pyramid", self.device):
             pyr, feats = _calc_ref_fused(self._on_device(self._ref_img), tuple(self._factors),
-                                         self.tile_size, self.use_dog, self._normalize)
+                                         self.tile_size, self.use_dog, normalize, daisy_dtype)
         self._ref_img_pyr = pyr
         self._ref_pyr_features = feats
 
@@ -324,13 +345,16 @@ class FeatureRegistrator:
         check_img_dims_match(self._ref_img, self._mov_img)
         if self.num_iterations < 1:
             raise ValueError("Number of iterations cannot be less than 1")
-        if not (reuse_ref_img and self._ref_pyr_features and self._normalize == daisy_normalize()):
-            self.calc_ref_img_features()
+        route = _read_route(self.device)
+        if reuse_ref_img and self._ref_pyr_features and self._route[:2] == route[:2]:
+            self._route = route  # the cached features' DAISY route, this register's knn
+        else:
+            self.calc_ref_img_features(route)
         if not self._fused_register_enabled():
             return self._register_per_level()
         tmat, diags = _register_fused(
             self._ref_img_pyr, self._ref_pyr_features, self._on_device(self._mov_img),
-            tuple(self._factors), self.tile_size, self.num_iterations, self.use_dog, self._normalize)
+            tuple(self._factors), self.tile_size, self.num_iterations, self.use_dog, self._route)
         fetched = torch.cat([tmat.to(torch.float64).reshape(-1), diags.reshape(-1)]).cpu().numpy()
         tmat = fetched[:6].reshape(2, 3)
         diags = fetched[6:].reshape(len(self._factors), self.num_iterations, 5)
@@ -395,7 +419,7 @@ class FeatureRegistrator:
             return mov_img, np.eye(2, 3)
         grid, k = _level_grid(mov_img.shape, self.tile_size)
         tmat, aligned, diag = _level_align_body(ref_img, ref_features, mov_img, grid, k, self.tile_size,
-                                                self.num_iterations, self.use_dog, self._normalize)
+                                                self.num_iterations, self.use_dog, self._route)
         fetched = torch.cat([tmat.to(torch.float64).reshape(-1), diag.reshape(-1)]).cpu().numpy()
         self._log_diag(fetched[6:].reshape(self.num_iterations, 5))
         return aligned, fetched[:6].reshape(2, 3)
@@ -423,10 +447,12 @@ class FeatureRegistrator:
     def _align_imgs(self, ref: Union[torch.Tensor, Features], mov_img: torch.Tensor):
         """(mov warped by the estimate, estimate): find and match the
         features, fit the matrix; the identity leaves mov as it is."""
+        normalize, daisy_dtype, match_dtype = self._route
         ref_features = ref if isinstance(ref, Features) else find_features(
-            dog(ref, self.use_dog), self.tile_size, normalize=self._normalize)
-        mov_features = find_features(dog_traced(mov_img, self.use_dog), self.tile_size, normalize=self._normalize)
-        transform_mat = register_img_pair(ref_features, mov_features)
+            dog(ref, self.use_dog), self.tile_size, normalize=normalize, daisy_dtype=daisy_dtype)
+        mov_features = find_features(dog_traced(mov_img, self.use_dog), self.tile_size, normalize=normalize,
+                                     daisy_dtype=daisy_dtype)
+        transform_mat = register_img_pair(ref_features, mov_features, match_dtype)
         if np.array_equal(transform_mat, np.eye(2, 3)):
             return mov_img, np.eye(2, 3)
         return self._transform_img_dev(mov_img, transform_mat), transform_mat

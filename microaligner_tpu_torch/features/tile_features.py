@@ -31,9 +31,14 @@ FAST is bit-exact across the three: coords, validity and responses agree.
 
 Each path L2-normalizes its descriptors unless
 ``MICROALIGNER_TPU_DAISY_NRM=0`` asks for the reference's raw ones (cv2's
-``NRM_NONE``, :func:`daisy_normalize`).  The port reads the variable on each
-call; the JAX package reads it once a trace, so its tests clear JAX's
-caches between the two modes, and the port needs no such step.
+``NRM_NONE``, :func:`daisy_normalize`), and runs DAISY's blur products on
+the operands that ``MICROALIGNER_TPU_DAISY_EXACT`` picks for the device
+(:func:`daisy_operand_dtype`: bf16 on the card unless it is ``1``);
+:func:`match_features` takes the knn's operands from
+``MICROALIGNER_TPU_MATCH_F32`` (:func:`match_operand_dtype`).  Each
+function reads a variable it is not given on each call; the JAX package
+reads them once a trace, so its tests clear JAX's caches between the
+modes, and the port needs no such step.
 """
 
 from __future__ import annotations
@@ -52,13 +57,15 @@ from microaligner_tpu_torch.features.daisy import (
 from microaligner_tpu_torch.features.fast import fast_detect_topk, fast_detect_topk_grid
 from microaligner_tpu_torch.features.match import match_descriptors
 from microaligner_tpu_torch.features.ransac import estimate_affine_partial_2d
+from microaligner_tpu_torch.features.routes import daisy_normalize, daisy_operand_dtype, match_operand_dtype
 from microaligner_tpu_torch.ops.pad import zero_pad
 from microaligner_tpu_torch.parallel.tile_runner import current_tile_mesh, tile_map
 from microaligner_tpu_torch.tiles import TileGrid, split_into_tiles
 from microaligner_tpu_torch.utils.device import resolve_device
 from microaligner_tpu_torch.utils.logging import log
 
-__all__ = ["Features", "find_features", "register_img_pair", "match_features"]
+__all__ = ["Features", "find_features", "register_img_pair", "match_features", "daisy_normalize",
+           "daisy_operand_dtype", "match_operand_dtype"]
 
 HALO = 51  # the reference's overlap for the feature path (tile_registration.py:33)
 
@@ -108,7 +115,8 @@ def _tile_origins(grid: TileGrid, device) -> torch.Tensor:
                        dim=-1).to(torch.float32)
 
 
-def _find_features_dense(img: torch.Tensor, grid: TileGrid, k: int, normalize: bool):
+def _find_features_dense(img: torch.Tensor, grid: TileGrid, k: int, normalize: bool,
+                         daisy_dtype: torch.dtype = torch.float32):
     """Whole-level FAST + DAISY.  Returns tile-local coords (N, k, 2),
     descriptors (N, k, 200), valid and responses (N, k)."""
     interior, halo = _canvases(img, grid)
@@ -117,7 +125,7 @@ def _find_features_dense(img: torch.Tensor, grid: TileGrid, k: int, normalize: b
     # the reference samples the halo tile at interior coords, a consistent
     # (-halo, -halo) offset; in halo-canvas coordinates it cancels, so the
     # sampling happens at global coords
-    cubes = _orientation_cubes(halo)
+    cubes = _orientation_cubes(halo, daisy_dtype)
     del halo
     global_coords = (coords + _tile_origins(grid, img.device)[:, None, :]).reshape(-1, 2)
     desc = _gather_descriptors(cubes, global_coords)
@@ -127,7 +135,8 @@ def _find_features_dense(img: torch.Tensor, grid: TileGrid, k: int, normalize: b
     return coords, desc.reshape(grid.num_tiles, k, -1), valid, resp
 
 
-def _find_features_banded(img: torch.Tensor, grid: TileGrid, k: int, normalize: bool):
+def _find_features_banded(img: torch.Tensor, grid: TileGrid, k: int, normalize: bool,
+                          daisy_dtype: torch.dtype = torch.float32):
     """Grid row by grid row: FAST on the band (bit-exact with the whole-level
     path: the band edges are tile edges), DAISY cubes over the band with
     full-width context and ``HALO`` rows above and below."""
@@ -140,7 +149,7 @@ def _find_features_banded(img: torch.Tensor, grid: TileGrid, k: int, normalize: 
         i = int(i)
         coords, resp, valid = fast_detect_topk_grid(interior[i * th : (i + 1) * th], th, tw, k,
                                                     threshold=1)
-        cubes = _orientation_cubes(halo[i * th : (i + 1) * th + 2 * HALO])
+        cubes = _orientation_cubes(halo[i * th : (i + 1) * th + 2 * HALO], daisy_dtype)
         # band-halo frame: x = global x (halo offset and quirk cancel), y =
         # tile-local y (the band row is the tile row)
         desc = _gather_descriptors(cubes, (coords + shift).reshape(-1, 2))
@@ -154,7 +163,8 @@ def _find_features_banded(img: torch.Tensor, grid: TileGrid, k: int, normalize: 
     return tuple(o.reshape((grid.num_tiles,) + tuple(o.shape[2:])) for o in outs)
 
 
-def _find_features_per_tile(img: torch.Tensor, grid: TileGrid, k: int, normalize: bool):
+def _find_features_per_tile(img: torch.Tensor, grid: TileGrid, k: int, normalize: bool,
+                            daisy_dtype: torch.dtype = torch.float32):
     """One halo tile at a time: FAST top-k on its interior, DAISY on the
     whole halo tile at the interior coords (the reference's consistent
     (-51, -51) offset, which cancels between ref and mov)."""
@@ -162,7 +172,7 @@ def _find_features_per_tile(img: torch.Tensor, grid: TileGrid, k: int, normalize
 
     def per_tile(tile):
         coords, resp, valid = fast_detect_topk(tile[HALO:-HALO, HALO:-HALO], k, threshold=1)
-        desc = daisy_at_points(tile.to(torch.float32), coords, normalize=normalize)
+        desc = daisy_at_points(tile.to(torch.float32), coords, normalize=normalize, operand_dtype=daisy_dtype)
         return coords, desc, valid, resp
 
     return tile_map(per_tile, (tiles,), batch=1, mesh=current_tile_mesh(img.device), unbatched=True)
@@ -186,51 +196,53 @@ def _per_tile_forced() -> bool:
     return os.environ.get("MICROALIGNER_TPU_FEATURE_DENSE", "auto") == "0"
 
 
-def daisy_normalize() -> bool:
-    """The JAX package's ``MICROALIGNER_TPU_DAISY_NRM``: ``0`` keeps the
-    reference's raw descriptors (cv2 ``NRM_NONE``, the reference's
-    feature_detection.py:96-104); anything else, and the default,
-    normalizes them to unit length."""
-    return os.environ.get("MICROALIGNER_TPU_DAISY_NRM", "1") != "0"
-
-
-def find_features_tiled(img: torch.Tensor, grid: TileGrid, k: int, normalize: bool | None = None):
+def find_features_tiled(img: torch.Tensor, grid: TileGrid, k: int, normalize: bool | None = None,
+                        daisy_dtype: torch.dtype | None = None):
     """Tiled FAST + DAISY -> flat global (coords (N*k, 2), descriptors
     (N*k, 200), valid (N*k,), responses (N*k,)): the whole level, per tile
     or banded, as the JAX package's ``_find_features_tiled_jit`` picks.
-    ``normalize`` None reads :func:`daisy_normalize` on this call."""
+    ``normalize`` None reads :func:`daisy_normalize` and ``daisy_dtype``
+    (the operands of DAISY's blur products) None reads
+    :func:`daisy_operand_dtype` for ``img``'s device, on this call."""
     if normalize is None:
         normalize = daisy_normalize()
+    if daisy_dtype is None:
+        daisy_dtype = daisy_operand_dtype(img.device)
     if _dense_level_enabled(grid):
-        coords, desc, valid, resp = _find_features_dense(img, grid, k, normalize)
+        coords, desc, valid, resp = _find_features_dense(img, grid, k, normalize, daisy_dtype)
     elif _per_tile_forced():
-        coords, desc, valid, resp = _find_features_per_tile(img, grid, k, normalize)
+        coords, desc, valid, resp = _find_features_per_tile(img, grid, k, normalize, daisy_dtype)
     else:
-        coords, desc, valid, resp = _find_features_banded(img, grid, k, normalize)
+        coords, desc, valid, resp = _find_features_banded(img, grid, k, normalize, daisy_dtype)
     coords = coords + _tile_origins(grid, img.device)[:, None, :]
     n = grid.num_tiles * k
     return coords.reshape(n, 2), desc.reshape(n, -1), valid.reshape(n), resp.reshape(n)
 
 
-def find_features(img, tile_size: int, device=None, normalize: bool | None = None) -> Features:
+def find_features(img, tile_size: int, device=None, normalize: bool | None = None,
+                  daisy_dtype: torch.dtype | None = None) -> Features:
     """Global feature set of a 2-D image (reference tile_registration.py:78-92).
     A constant image has no FAST corners, so its set comes back all invalid
     without a host check.  It runs on ``device``; by default a tensor stays
     where it is and a numpy array goes to the first CUDA device (raising
-    when there is no card).  ``normalize`` as :func:`find_features_tiled`."""
+    when there is no card).  ``normalize`` and ``daisy_dtype`` as
+    :func:`find_features_tiled`."""
     if device is not None or not isinstance(img, torch.Tensor):
         img = torch.as_tensor(img).to(resolve_device(device))
     grid = TileGrid.for_image(tuple(img.shape), tile_size, HALO)
-    return Features(*find_features_tiled(img, grid, features_per_tile(grid), normalize))
+    return Features(*find_features_tiled(img, grid, features_per_tile(grid), normalize, daisy_dtype))
 
 
-def match_features(ref_features: Features, mov_features: Features, seed: int = 0) -> np.ndarray:
+def match_features(ref_features: Features, mov_features: Features, seed: int = 0,
+                   match_dtype: torch.dtype | None = None) -> np.ndarray:
     """The 2x3 matrix mov -> ref from matched features (reference
-    feature_detection.py:121-158); identity with fewer than 3 matches."""
+    feature_detection.py:121-158); identity with fewer than 3 matches.
+    ``match_dtype`` is the knn cross term's operand dtype; None reads
+    :func:`match_operand_dtype` for the descriptors' device."""
     if not ref_features.is_valid() or not mov_features.is_valid():
         return np.eye(2, 3)
     good, ref_idx = match_descriptors(ref_features.descriptors, mov_features.descriptors,
-                                      ref_features.valid, mov_features.valid)
+                                      ref_features.valid, mov_features.valid, operand_dtype=match_dtype)
     counts = torch.stack([torch.sum(good), torch.sum(mov_features.valid)]).cpu().tolist()
     log("    Good matches", counts[0], "/", counts[1])
     if counts[0] < 3:
@@ -240,5 +252,6 @@ def match_features(ref_features: Features, mov_features: Features, seed: int = 0
     return tmat
 
 
-def register_img_pair(ref_features: Features, mov_features: Features) -> np.ndarray:
-    return match_features(ref_features, mov_features)
+def register_img_pair(ref_features: Features, mov_features: Features,
+                      match_dtype: torch.dtype | None = None) -> np.ndarray:
+    return match_features(ref_features, mov_features, match_dtype=match_dtype)

@@ -14,11 +14,20 @@ DAISY's long blurs (ksize 29..63) are products with blur operators instead
 and one shared Toeplitz band over 512-row blocks for long ones, with the
 REFLECT_101 fold inside the operators.  The JAX package leaves these to XLA
 outside any Pallas kernel and asks for DEFAULT precision on every backend
-(bf16 operands on a TPU, float32 products on the CPU), unless
-``MICROALIGNER_TPU_DAISY_EXACT=1``.
-Here they are float32 products with TF32 off (:func:`ieee_float32`); the
-CPU's BLAS and cuBLAS sum them in different orders, so the two devices'
-blurs differ in their last bits.
+(bf16 operands and float32 sums on a TPU, float32 products on the CPU),
+unless ``MICROALIGNER_TPU_DAISY_EXACT=1``.  The caller picks the route by
+the operands' dtype (``features/routes.py``):
+
+* float32: float32 products with TF32 off (:func:`ieee_float32`);
+* bf16: each product's operand and its operator rounded to bf16 (round to
+  nearest even), float32 sums and outputs (:func:`product_f32`), as each
+  DEFAULT product on a TPU; the second axis re-rounds the first axis's
+  float32 output.  On the card one cuBLAS product with bf16 operands and a
+  float32 result; on the CPU the plain version, the rounded operands
+  multiplied in float32 (a product of two bf16 values is exact in float32).
+
+The CPU's BLAS and cuBLAS sum in different orders, so the two devices'
+blurs differ in their last bits on either route.
 """
 
 from __future__ import annotations
@@ -34,6 +43,8 @@ __all__ = [
     "gaussian_blur",
     "gaussian_blur_mxu",
     "ieee_float32",
+    "bf16_products",
+    "product_f32",
     "sep_filter2d",
     "dog",
     "dog_traced",
@@ -112,54 +123,116 @@ def ieee_float32():
         torch.set_float32_matmul_precision(prev)
 
 
-def _operator(table: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    """A float32 table as a tensor on ``like``'s device."""
-    return torch.from_numpy(table).to(like.device)
+@contextlib.contextmanager
+def bf16_products():
+    """bf16 matrix products in the block sum in float32 throughout: cuBLAS
+    may not reduce split-K partials in bf16, whatever the caller's
+    setting."""
+    matmul = torch.backends.cuda.matmul
+    prev = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = prev
 
 
-def _blur_axis_banded(x: torch.Tensor, axis: int, ksize: int, sigma: float) -> torch.Tensor:
+def product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two bf16 matrices (2-D) or stacks (3-D, one batch
+    size) with float32 sums and a float32 result.  On the card one cuBLAS
+    call with a float32 output (``torch.mm``/``torch.bmm`` with
+    ``out_dtype``; it raises where that is missing, and never returns a bf16
+    product); on the CPU the plain version: the operands cast to float32,
+    where their products are exact, and multiplied in float32."""
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        raise TypeError(f"product_f32: bf16 operands expected, got {a.dtype} and {b.dtype}")
+    if a.is_cuda:
+        with bf16_products():
+            mm = torch.mm if a.dim() == 2 else torch.bmm
+            return mm(a, b, out_dtype=torch.float32)
+    with ieee_float32():
+        return torch.matmul(a.to(torch.float32), b.to(torch.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_table(table_fn, n: int, ksize: int, sigma: float) -> torch.Tensor:
+    """A blur operator table rounded to bf16 once, on the host."""
+    return torch.from_numpy(table_fn(n, ksize, sigma)).to(torch.bfloat16)
+
+
+def _operator(table_fn, n: int, ksize: int, sigma: float, like: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """``table_fn(n, ksize, sigma)`` in ``dtype`` (float32 or bf16) on
+    ``like``'s device."""
+    if dtype == torch.bfloat16:
+        return _bf16_table(table_fn, n, ksize, float(sigma)).to(like.device)
+    return torch.from_numpy(table_fn(n, ksize, float(sigma))).to(like.device)
+
+
+def _apply(op: torch.Tensor, x: torch.Tensor, left: bool) -> torch.Tensor:
+    """``op @ x`` (``left``) or ``x @ op`` over ``x``'s leading axes: a
+    float32 product as ``torch.matmul`` broadcasts it, or, for a bf16 ``op``,
+    :func:`product_f32` of ``op`` and ``x`` rounded to bf16."""
+    if op.dtype == torch.float32:
+        return torch.matmul(op, x) if left else torch.matmul(x, op)
+    xb = x.to(torch.bfloat16)
+    if left:  # (m, k) @ (..., k, n)
+        xs = xb.reshape(-1, *xb.shape[-2:])
+        out = product_f32(op.expand(xs.shape[0], *op.shape), xs)
+        return out.reshape(*x.shape[:-2], op.shape[0], x.shape[-1])
+    out = product_f32(xb.reshape(-1, xb.shape[-1]), op)  # (..., k) @ (k, n)
+    return out.reshape(*x.shape[:-1], op.shape[1])
+
+
+def _blur_axis_banded(x: torch.Tensor, axis: int, ksize: int, sigma: float,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Banded blur along ``axis`` (-2 or -1): REFLECT_101-pad by r, zero the
-    tail to whole blocks, contract every block's window with the shared band,
-    crop.  The zero tail only feeds cropped rows."""
+    tail to whole blocks, contract every block's window with the shared band
+    in ``dtype`` operands, crop.  The zero tail only feeds cropped rows."""
     size = x.shape[axis]
     r = (ksize - 1) // 2
     block = BANDED_BLOCK
     nb = -(-size // block)
-    xp = x.index_select(axis, _reflect101_index(size, r, x.device))
+    xp = x.to(dtype).index_select(axis, _reflect101_index(size, r, x.device))
     tail = nb * block - size
     if tail:
         shape = list(xp.shape)
         shape[axis] = tail
         xp = torch.cat([xp, xp.new_zeros(shape)], dim=axis)
-    T = _operator(_toeplitz_band(block, ksize, float(sigma)), x)
+    T = _operator(_toeplitz_band, block, ksize, sigma, x, dtype)
     win = block + 2 * r
     # (..., nb, win) windows of the axis, stride `block`
     if axis in (-1, x.dim() - 1):
         wins = xp.unfold(-1, win, block)  # (..., nb, win)
-        out = torch.matmul(wins, T.T)  # (..., nb, block)
+        out = _apply(T.T, wins, left=False)  # (..., nb, block)
         return out.reshape(*x.shape[:-1], nb * block)[..., :size]
     wins = xp.unfold(-2, win, block)  # (..., nb, W, win)
-    out = torch.matmul(T, wins.transpose(-1, -2))  # (..., nb, block, W)
+    out = _apply(T, wins.transpose(-1, -2), left=True)  # (..., nb, block, W)
     return out.reshape(*x.shape[:-2], nb * block, x.shape[-1])[..., :size, :]
 
 
-def gaussian_blur_mxu(x: torch.Tensor, ksize: int, sigma: float) -> torch.Tensor:
+def gaussian_blur_mxu(x: torch.Tensor, ksize: int, sigma: float,
+                      operand_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Gaussian blur of a (..., H, W) float32 stack along the last two axes
     as blur-operator products (REFLECT_101, same size): the JAX package's
-    ``gaussian_blur_mxu`` with its float32 operators, in float32 with TF32
-    off.  Axes longer than ``BANDED_BLOCK + ksize - 1`` take the banded
+    ``gaussian_blur_mxu``, whose ``precision`` is ``operand_dtype`` here:
+    float32 (its HIGHEST, the default) with TF32 off, or bf16 (its DEFAULT
+    on a TPU): operands and operators rounded to bf16, float32 sums and
+    output.  Axes longer than ``BANDED_BLOCK + ksize - 1`` take the banded
     operator."""
+    if operand_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"gaussian_blur_mxu: operand dtype {operand_dtype} is neither float32 nor bf16")
     h, w = x.shape[-2], x.shape[-1]
     y = x.to(torch.float32)
     with ieee_float32():
         if h > BANDED_BLOCK + ksize - 1:
-            y = _blur_axis_banded(y, -2, ksize, sigma)
+            y = _blur_axis_banded(y, -2, ksize, sigma, operand_dtype)
         else:
-            y = torch.matmul(_operator(_blur_operator(h, ksize, float(sigma)), y), y)
+            y = _apply(_operator(_blur_operator, h, ksize, sigma, y, operand_dtype), y, left=True)
         if w > BANDED_BLOCK + ksize - 1:
-            y = _blur_axis_banded(y, -1, ksize, sigma)
+            y = _blur_axis_banded(y, -1, ksize, sigma, operand_dtype)
         else:
-            y = torch.matmul(y, _operator(_blur_operator(w, ksize, float(sigma)), y).T)
+            y = _apply(_operator(_blur_operator, w, ksize, sigma, y, operand_dtype).T, y, left=False)
     return y
 
 

@@ -1,7 +1,8 @@
 """K1-K6 on the card against their plain PyTorch versions on the same card,
 the affine warp through K1's row window, the unpaired Farneback route
-(K6), the matcher's near-ties, and the pinned, streamed apply of the CLI on
-the card.
+(K6), the matcher's near-ties, FeatureReg's bf16 operand route (the knn
+cross term and DAISY's blur products), and the pinned, streamed apply of
+the CLI on the card.
 
 These tests need an NVIDIA GPU and nvcc: the kernels are CUDA C++ with no
 CPU build, so without a card every test here skips.  The file imports only
@@ -48,6 +49,16 @@ card against the CPU on this route), and against a float64 run of the same
 bf16 operator no further than the plain version is, within 10% in mean and
 5e-3 px in max; at aligned and ragged widths, with H or W below the
 half-window, and on one-pixel axes.
+
+FeatureReg's bf16 operand route (``MICROALIGNER_TPU_MATCH_F32``,
+``MICROALIGNER_TPU_DAISY_EXACT`` unset on the card): the knn cross term and
+the blur products take bf16 operands and come back as float32, within the
+float32 summation bound of the CPU's plain version (the rounded operands
+multiplied in float32: the same exact products, summed in another order),
+2 (n + 2) 2^-24 sum |a| |b| for n terms, the knn distances through the
+mixed formula's bound of features/match.py; cuBLAS's
+``allow_bf16_reduced_precision_reduction`` is as it was after each call;
+the matches on the card equal the CPU's on that route.
 """
 
 
@@ -591,10 +602,77 @@ def test_match_near_ties_on_card_equal_cpu(gen, dev):
     train = np.concatenate([near, far, 10.0 * noise / np.linalg.norm(noise, axis=1, keepdims=True)])
     args = [torch.from_numpy(train.astype(np.float32)), torch.from_numpy(query),
             torch.ones(len(train), dtype=torch.bool), torch.ones(n, dtype=torch.bool)]
-    good, idx = match_descriptors(*(a.to(dev) for a in args))
-    want_good, want_idx = match_descriptors(*args)
-    assert torch.equal(good.cpu(), want_good) and torch.equal(idx.cpu(), want_idx)
-    assert 0 < int(want_good.sum()) < n
+    for route in (torch.float32, torch.bfloat16):  # MATCH_F32=1 and the card's default
+        good, idx = match_descriptors(*(a.to(dev) for a in args), operand_dtype=route)
+        want_good, want_idx = match_descriptors(*args, operand_dtype=route)
+        assert torch.equal(good.cpu(), want_good) and torch.equal(idx.cpu(), want_idx)
+        assert 0 < int(want_good.sum()) < n
+
+
+@pytest.mark.cuda
+def test_knn_cross_term_bf16_on_card(gen, dev):
+    """The bf16 cross term is one cuBLAS product with a float32 result,
+    within the float32 summation bound of the CPU's plain version, and
+    leaves cuBLAS's bf16 reduction setting as it was; the knn on the route
+    within the mixed formula's bound of the CPU's."""
+    from microaligner_tpu_torch.features.match import knn_top2
+    from microaligner_tpu_torch.features.routes import match_operand_dtype
+    from microaligner_tpu_torch.ops.filters import product_f32
+
+    q = torch.from_numpy(gen.random((700, 200), dtype=np.float32)).to(torch.bfloat16)
+    t = torch.from_numpy(gen.random((900, 200), dtype=np.float32)).to(torch.bfloat16)
+    matmul = torch.backends.cuda.matmul
+    for setting in (True, False):
+        matmul.allow_bf16_reduced_precision_reduction = setting
+        got = product_f32(q.to(dev), t.to(dev).T)
+        assert matmul.allow_bf16_reduced_precision_reduction == setting
+    matmul.allow_bf16_reduced_precision_reduction = True
+    assert got.dtype == torch.float32
+    want = product_f32(q, t.T)
+    bound = 2 * 202 * 2.0**-24 * (q.double().abs() @ t.double().abs().T)
+    assert bool(((got.cpu().double() - want.double()).abs() <= bound).all())
+    assert bool((got.cpu() != got.cpu().to(torch.bfloat16).float()).any())  # float32 sums, not a bf16 product
+    assert match_operand_dtype(dev) == torch.bfloat16  # the card's default
+    query, train = q.float() / 15.0, t.float() / 15.0
+    valid_q, valid_t = torch.ones(700, dtype=torch.bool), torch.ones(900, dtype=torch.bool)
+    d1, d2, _ = knn_top2(query.to(dev), train.to(dev), valid_q.to(dev), valid_t.to(dev))
+    w1, w2, _ = knn_top2(query, train, valid_q, valid_t, operand_dtype=torch.bfloat16)
+    qn = (query.double() ** 2).sum(1)
+    tol = 2 * 605 * 2.0**-24 * (qn + float((train.double() ** 2).sum(1).max()))
+    assert bool(((d1.cpu().double() - w1.double()).abs() <= tol).all())
+    assert bool(((d2.cpu().double() - w2.double()).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,sigma", [((8, 300, 340), 3.5), ((8, 700, 640), 7.826238), ((2, 48, 1300), 6.0621778)],
+                         ids=["dense", "banded", "banded-cols"])
+def test_blur_bf16_on_card(gen, dev, shape, sigma):
+    """DAISY's blur products on the bf16 route: float32 out, within the
+    float32 summation bound of the CPU's plain version on both axes (the
+    first axis's output can round to neighbouring bf16 values on the two
+    devices: one bf16 unit of it times its operator weight more, on at most
+    1% of the values), and cuBLAS's setting restored."""
+    from microaligner_tpu_torch.ops import filters
+
+    ksize = int(round(sigma * 4)) * 2 + 1
+    x = torch.from_numpy(gen.random(shape, dtype=np.float32))
+    matmul = torch.backends.cuda.matmul
+    matmul.allow_bf16_reduced_precision_reduction = True
+    got = filters.gaussian_blur_mxu(x.to(dev), ksize, sigma, torch.bfloat16)
+    assert matmul.allow_bf16_reduced_precision_reduction
+    assert got.dtype == torch.float32
+    want = filters.gaussian_blur_mxu(x, ksize, sigma, torch.bfloat16).double()
+    h, w = shape[1:]
+    bh, bw = (torch.from_numpy(filters._blur_operator(n, ksize, sigma)).double() for n in (h, w))
+    nw = w if w <= filters.BANDED_BLOCK + ksize - 1 else filters.BANDED_BLOCK + ksize - 1
+    y1 = bh @ x.to(torch.bfloat16).double()  # the Gaussian's taps are positive
+    tight = 2 * (nw + 2) * 2.0**-24 * (y1 @ bw.T) * 1.01
+    unit = torch.ldexp(torch.ones_like(y1), torch.frexp(y1).exponent - 8)
+    diff = (got.cpu().double() - want).abs()
+    assert bool((diff <= tight + unit @ bw.T).all())
+    assert float((diff > tight).double().mean()) <= 0.01
+    f32 = filters.gaussian_blur_mxu(x.to(dev), ksize, sigma)
+    assert float((got - f32).abs().max()) > 10 * float(tight.max())  # the bf16 route, not the float32 one
 
 
 # -- the per-tile route (MICROALIGNER_TPU_FLOW_DENSE=0) ------------------------
