@@ -59,6 +59,7 @@ import torch
 
 from microaligner_tpu_torch.features.routes import match_operand_dtype
 from microaligner_tpu_torch.ops.filters import ieee_float32, product_f32
+from microaligner_tpu_torch.utils.logging import counter, profiling_enabled, span
 
 __all__ = ["knn_top2", "match_descriptors", "near_ties"]
 
@@ -125,7 +126,12 @@ def match_descriptors(des_ref: torch.Tensor, des_mov: torch.Tensor, ref_valid: t
     ``d1 < ratio * d2`` on unsquared distances, near-ties decided in
     float64 (one host round trip for their count, kept in
     :data:`near_ties`).  ``operand_dtype`` as :func:`knn_top2`.  Returns
-    ``(good (Q,) bool, ref_idx (Q,) int64)`` aligned with the mov rows."""
+    ``(good (Q,) bool, ref_idx (Q,) int64)`` aligned with the mov rows.
+
+    Under ``MICROALIGNER_TPU_PROFILE`` each call records a ``features.knn``
+    counter (capacity and valid rows of both sides, the valid counts as
+    device scalars, the descriptor width, the operand dtype and the
+    near-tie rows) and the re-decision is a ``features.near_ties`` span."""
     if operand_dtype is None:
         operand_dtype = match_operand_dtype(des_mov.device)
     r2 = ratio * ratio
@@ -136,8 +142,13 @@ def match_descriptors(des_ref: torch.Tensor, des_mov: torch.Tensor, ref_valid: t
     sel = torch.nonzero((torch.abs(d1 - r2 * d2) <= _TIE_TOL[operand_dtype] * scale) & mov_valid).squeeze(1)
     n = sel.numel()
     near_ties.update(calls=near_ties["calls"] + 1, rows=near_ties["rows"] + n, max=max(near_ties["max"], n))
+    if profiling_enabled():
+        counter("features.knn", query_rows=query.shape[0], train_rows=train.shape[0],
+                query_valid=mov_valid.sum(), train_valid=ref_valid.sum(), width=query.shape[1],
+                dtype=str(operand_dtype).removeprefix("torch."), ties=n)
     if n:
-        e1, e2, ei, _, _ = _top2(query[sel].double(), train.double(), ref_valid, 4096, operand_dtype)
-        good[sel] = e1 < r2 * e2
-        i1[sel] = ei
+        with span("features.near_ties", query.device, rows=n):
+            e1, e2, ei, _, _ = _top2(query[sel].double(), train.double(), ref_valid, 4096, operand_dtype)
+            good[sel] = e1 < r2 * e2
+            i1[sel] = ei
     return good, i1

@@ -74,7 +74,7 @@ from microaligner_tpu_torch.utils.img_checks import (
     check_img_is_2d_grey,
     check_img_is_provided,
 )
-from microaligner_tpu_torch.utils.logging import log, stage_timer
+from microaligner_tpu_torch.utils.logging import log, span, stage_timer
 
 __all__ = ["FeatureRegistrator"]
 
@@ -117,7 +117,7 @@ def _valid_transform_traced(est3: torch.Tensor, img_shape) -> torch.Tensor:
 
 def _level_align_body(ref_img, ref_feats: Features, mov_img, grid: TileGrid, k: int,
                       tile_size: int, num_iterations: int, use_dog: bool, route: tuple,
-                      label: str = "feature"):
+                      label: str = "feature", factor: int | None = None):
     """One pyramid level's whole iterative alignment on the device.
 
     Returns (composed 2x3 float32, aligned image, diagnostics
@@ -127,7 +127,8 @@ def _level_align_body(ref_img, ref_feats: Features, mov_img, grid: TileGrid, k: 
     ``MICROALIGNER_TPU_PROFILE`` each round's four
     steps are timed as ``{label} find`` (DoG, FAST, DAISY), ``match`` (knn
     and the ratio test), ``ransac`` and ``gate`` (the candidate warp, both
-    NMI scores and the realign)."""
+    NMI scores and the realign), spans ``features.find`` ... ``features.gate``
+    with the level's ``factor`` and the round's ``iteration``."""
     dev = mov_img.device
     eye3 = torch.eye(3, dtype=torch.float32, device=dev)
     dtype = mov_img.dtype
@@ -135,18 +136,19 @@ def _level_align_body(ref_img, ref_feats: Features, mov_img, grid: TileGrid, k: 
     ref_gate_dog = dog_traced(ref_img, True)  # the MI gate always DoGs
     composed, aligned = eye3, mov_img
     rows = []
-    for _ in range(num_iterations):
-        with stage_timer(f"{label} find", dev):
+    for it in range(num_iterations):
+        at = dict(factor=factor, iteration=it)
+        with stage_timer(f"{label} find", dev, name="features.find", **at):
             coords, desc, valid, _resp = find_features_tiled(dog_traced(aligned, use_dog), grid, k, normalize,
                                                              daisy_dtype)
-        with stage_timer(f"{label} match", dev):
+        with stage_timer(f"{label} match", dev, name="features.match", **at):
             good, ref_idx = match_descriptors(ref_feats.descriptors, desc, ref_feats.valid, valid,
                                               operand_dtype=match_dtype)
-        with stage_timer(f"{label} ransac", dev):
+        with stage_timer(f"{label} ransac", dev, name="features.ransac", **at):
             dst = ref_feats.coords[ref_idx]
             n_good = torch.sum(good)
             params, _count = _ransac_core(coords, dst, good, 0)
-        with stage_timer(f"{label} gate", dev):
+        with stage_timer(f"{label} gate", dev, name="features.gate", **at):
             a, b, tx, ty = params[0], params[1], params[2], params[3]
             zero, one = torch.zeros_like(a), torch.ones_like(a)
             est = torch.stack([torch.stack([a, -b, tx]), torch.stack([b, a, ty]),
@@ -221,7 +223,7 @@ def _register_fused(ref_pyr, ref_feats, mov_img: torch.Tensor, factors, tile_siz
     diags = []
     for i, factor in enumerate(factors):
         mov_lvl = mov_pyr[i]
-        with stage_timer(f"feature lvl{factor}", dev):
+        with stage_timer(f"feature lvl{factor}", dev, name="features.level", factor=factor):
             if i > 0:
                 acc = torch.eye(3, dtype=torch.float32, device=dev)
                 for m in fullscale:
@@ -230,7 +232,7 @@ def _register_fused(ref_pyr, ref_feats, mov_img: torch.Tensor, factors, tile_siz
             grid, k = _level_grid(mov_lvl.shape, tile_size)
             tmat2, _aligned, diag = _level_align_body(
                 ref_pyr[i], ref_feats[i], mov_lvl, grid, k, tile_size, num_iterations, use_dog,
-                route, f"feature lvl{factor}")
+                route, f"feature lvl{factor}", factor)
         hom = torch.cat([tmat2, torch.tensor([[0.0, 0.0, 1.0]], device=dev)], dim=0)
         fullscale.append(hom * _tscale(float(factor), dev))
         diags.append(diag)
@@ -331,7 +333,7 @@ class FeatureRegistrator:
                                       for lvl in self._ref_img_pyr]
             return
         self._factors = self._pyr_factors()
-        with stage_timer("feature reference pyramid", self.device):
+        with stage_timer("feature reference pyramid", self.device, name="features.reference_pyramid"):
             pyr, feats = _calc_ref_fused(self._on_device(self._ref_img), tuple(self._factors),
                                          self.tile_size, self.use_dog, normalize, daisy_dtype)
         self._ref_img_pyr = pyr
@@ -345,17 +347,18 @@ class FeatureRegistrator:
         check_img_dims_match(self._ref_img, self._mov_img)
         if self.num_iterations < 1:
             raise ValueError("Number of iterations cannot be less than 1")
-        route = _read_route(self.device)
-        if reuse_ref_img and self._ref_pyr_features and self._route[:2] == route[:2]:
-            self._route = route  # the cached features' DAISY route, this register's knn
-        else:
-            self.calc_ref_img_features(route)
-        if not self._fused_register_enabled():
-            return self._register_per_level()
-        tmat, diags = _register_fused(
-            self._ref_img_pyr, self._ref_pyr_features, self._on_device(self._mov_img),
-            tuple(self._factors), self.tile_size, self.num_iterations, self.use_dog, self._route)
-        fetched = torch.cat([tmat.to(torch.float64).reshape(-1), diags.reshape(-1)]).cpu().numpy()
+        with span("features.register", self.device):
+            route = _read_route(self.device)
+            if reuse_ref_img and self._ref_pyr_features and self._route[:2] == route[:2]:
+                self._route = route  # the cached features' DAISY route, this register's knn
+            else:
+                self.calc_ref_img_features(route)
+            if not self._fused_register_enabled():
+                return self._register_per_level()
+            tmat, diags = _register_fused(
+                self._ref_img_pyr, self._ref_pyr_features, self._on_device(self._mov_img),
+                tuple(self._factors), self.tile_size, self.num_iterations, self.use_dog, self._route)
+            fetched = torch.cat([tmat.to(torch.float64).reshape(-1), diags.reshape(-1)]).cpu().numpy()
         tmat = fetched[:6].reshape(2, 3)
         diags = fetched[6:].reshape(len(self._factors), self.num_iterations, 5)
         for lvl, factor in enumerate(self._factors):
@@ -382,9 +385,9 @@ class FeatureRegistrator:
             if i > 0:
                 rescaled = [self._rescale_t_mat(m, 1 / factor) for m in fullscale_t_mat_list]
                 mov_lvl = self._transform_img_dev(mov_lvl, self._multiply_transform_matrices(rescaled))
-            with stage_timer(f"feature lvl{factor}", self.device):
+            with stage_timer(f"feature lvl{factor}", self.device, name="features.level", factor=factor):
                 _, t_mat = self._iterative_alignment(self._ref_img_pyr[i], self._ref_pyr_features[i],
-                                                     mov_lvl)
+                                                     mov_lvl, factor)
             fullscale_t_mat_list.append(self._rescale_t_mat(t_mat, factor))
         return self._multiply_transform_matrices(fullscale_t_mat_list)
 
@@ -403,7 +406,7 @@ class FeatureRegistrator:
         fwd = torch.as_tensor(np.asarray(t_mat, np.float64), dtype=torch.float32, device=img.device)
         return round_to_dtype(affine_warp_traced(img, fwd), img.dtype)
 
-    def _iterative_alignment(self, ref_img, ref_features: Features, mov_img):
+    def _iterative_alignment(self, ref_img, ref_features: Features, mov_img, factor: int | None = None):
         """One level's rounds: (aligned image, 2x3 float64 matrix).  The
         device loop (``_level_align_body``) once, read back at its end, or,
         under ``MICROALIGNER_TPU_FUSED_LEVEL=0``, the host loop."""
@@ -419,7 +422,8 @@ class FeatureRegistrator:
             return mov_img, np.eye(2, 3)
         grid, k = _level_grid(mov_img.shape, self.tile_size)
         tmat, aligned, diag = _level_align_body(ref_img, ref_features, mov_img, grid, k, self.tile_size,
-                                                self.num_iterations, self.use_dog, self._route)
+                                                self.num_iterations, self.use_dog, self._route,
+                                                factor=factor)
         fetched = torch.cat([tmat.to(torch.float64).reshape(-1), diag.reshape(-1)]).cpu().numpy()
         self._log_diag(fetched[6:].reshape(self.num_iterations, 5))
         return aligned, fetched[:6].reshape(2, 3)

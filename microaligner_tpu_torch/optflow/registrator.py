@@ -56,7 +56,7 @@ from microaligner_tpu_torch.utils.img_checks import (
     check_img_is_2d_grey,
     check_img_is_provided,
 )
-from microaligner_tpu_torch.utils.logging import log, stage_timer
+from microaligner_tpu_torch.utils.logging import log, span, stage_timer
 
 __all__ = ["OptFlowRegistrator", "merge_two_flows"]
 
@@ -71,30 +71,37 @@ def merge_two_flows(flow1, flow2) -> np.ndarray:
 
 def _fused_level(ref_lvl, mov_lvl, m_flow, grid: TileGrid, win_size: int, num_iter: int,
                  use_dog: bool, tile_size: int, pre_warp: bool, whole_image: bool,
-                 dtype: torch.dtype, band_rows: Optional[int]):
+                 dtype: torch.dtype, band_rows: Optional[int], factor: Optional[int] = None):
     """One pyramid level: pre-warp, DoG, Farneback + post-warp, and both NMI
     gate scores, each warp and the flow on ``MICROALIGNER_TPU_FLOW_DENSE``'s
     route.  Returns ``(this_flow (H, W, 2), mi_after, mi_before)`` with the
-    scores as 0-d device tensors."""
+    scores as 0-d device tensors.  Under ``MICROALIGNER_TPU_PROFILE`` the
+    steps are the spans ``optflow.prewarp``, ``optflow.dog``, ``optflow.flow``
+    (with the post-warp) and ``optflow.gate``, with the level's ``factor``."""
+    dev = ref_lvl.device
     mov_this = mov_lvl
     if pre_warp:
-        mov_this = warp_tiled_dtype(mov_lvl, m_flow, grid, dtype, band_rows)
-    ref_dog = dog_traced(ref_lvl, use_dog)
-    mov_dog = dog_traced(mov_this, use_dog)
-    if whole_image:
-        fx, fy = _farneback_core_parts(
-            mov_dog.to(torch.float32)[None], ref_dog.to(torch.float32)[None],
-            win_size, num_iter, 1, 1.7,
-        )
-        this_flow = torch.stack([fx[0], fy[0]], dim=-1)
-        mov_warped = warp_tiled_dtype(mov_this, this_flow, grid, dtype, band_rows)
-    else:
-        this_flow, mov_warped = calc_flow_and_warp_tiled(
-            ref_dog, mov_dog, mov_this, grid, win_size, num_iter, dtype, band_rows
-        )
-    gate_ref = dog_traced(ref_lvl, True)
-    mi_after = mi_tiled_traced(gate_ref, dog_traced(mov_warped, True), tile_size)
-    mi_before = mi_tiled_traced(gate_ref, dog_traced(mov_lvl, True), tile_size)
+        with span("optflow.prewarp", dev, factor=factor):
+            mov_this = warp_tiled_dtype(mov_lvl, m_flow, grid, dtype, band_rows)
+    with span("optflow.dog", dev, factor=factor):
+        ref_dog = dog_traced(ref_lvl, use_dog)
+        mov_dog = dog_traced(mov_this, use_dog)
+    with span("optflow.flow", dev, factor=factor):
+        if whole_image:
+            fx, fy = _farneback_core_parts(
+                mov_dog.to(torch.float32)[None], ref_dog.to(torch.float32)[None],
+                win_size, num_iter, 1, 1.7,
+            )
+            this_flow = torch.stack([fx[0], fy[0]], dim=-1)
+            mov_warped = warp_tiled_dtype(mov_this, this_flow, grid, dtype, band_rows)
+        else:
+            this_flow, mov_warped = calc_flow_and_warp_tiled(
+                ref_dog, mov_dog, mov_this, grid, win_size, num_iter, dtype, band_rows
+            )
+    with span("optflow.gate", dev, factor=factor):
+        gate_ref = dog_traced(ref_lvl, True)
+        mi_after = mi_tiled_traced(gate_ref, dog_traced(mov_warped, True), tile_size)
+        mi_before = mi_tiled_traced(gate_ref, dog_traced(mov_lvl, True), tile_size)
     return this_flow, mi_after, mi_before
 
 
@@ -102,36 +109,38 @@ def _fused_level_carry(ref_lvl, mov_lvl, m_flow, grid: TileGrid, win_size: int,
                        num_iter: int, use_dog: bool, tile_size: int, pre_warp: bool,
                        whole_image: bool, dtype: torch.dtype, band_rows: Optional[int],
                        is_first: bool, is_last: bool, next_shape, full_shape,
-                       use_full_res: bool, reject_mult: int):
+                       use_full_res: bool, reject_mult: int, factor: Optional[int] = None):
     """One level including the accept/reject carry: the composition and one
     pyrUp run unconditionally and ``torch.where`` picks the accepted or the
-    rejected input.  Returns ``(m_flow_next, mi_after, mi_before)``."""
+    rejected input (the span ``optflow.carry``).  Returns ``(m_flow_next,
+    mi_after, mi_before)``."""
     this_flow, mi_after, mi_before = _fused_level(
         ref_lvl, mov_lvl, m_flow, grid, win_size, num_iter, use_dog, tile_size,
-        pre_warp, whole_image, dtype, band_rows,
+        pre_warp, whole_image, dtype, band_rows, factor,
     )
-    accept = mi_after > mi_before
+    with span("optflow.carry", ref_lvl.device, factor=factor):
+        accept = mi_after > mi_before
 
-    if is_first:
-        target = full_shape if is_last else next_shape
-        if is_last and abs(this_flow.shape[0] - full_shape[0]) <= 1:
-            # single level at (almost) full size: accept keeps the raw flow
-            return torch.where(accept, this_flow, 0.0), mi_after, mi_before
-        mult = 2.0 if not is_last else 1.0
-        up = pyr_up(this_flow * mult, (int(target[0]), int(target[1])))
-        return torch.where(accept, up, 0.0), mi_after, mi_before
+        if is_first:
+            target = full_shape if is_last else next_shape
+            if is_last and abs(this_flow.shape[0] - full_shape[0]) <= 1:
+                # single level at (almost) full size: accept keeps the raw flow
+                return torch.where(accept, this_flow, 0.0), mi_after, mi_before
+            mult = 2.0 if not is_last else 1.0
+            up = pyr_up(this_flow * mult, (int(target[0]), int(target[1])))
+            return torch.where(accept, up, 0.0), mi_after, mi_before
 
-    merged = compose_flows_tiled(m_flow, this_flow, grid)
-    if is_last:
-        if use_full_res or abs(merged.shape[0] - full_shape[0]) <= 1:
-            return torch.where(accept, merged, m_flow), mi_after, mi_before
-        # accept: one pyrUp of the merged flow, values unscaled (the
-        # reference's _upscale_flow_to_full_res quirk); reject: the doubled
-        # accumulated flow upscaled
-        src = torch.where(accept, merged, m_flow * 2.0)
-        return pyr_up(src, (int(full_shape[0]), int(full_shape[1]))), mi_after, mi_before
-    src = torch.where(accept, merged * 2.0, m_flow * float(reject_mult))
-    return pyr_up(src, (int(next_shape[0]), int(next_shape[1]))), mi_after, mi_before
+        merged = compose_flows_tiled(m_flow, this_flow, grid)
+        if is_last:
+            if use_full_res or abs(merged.shape[0] - full_shape[0]) <= 1:
+                return torch.where(accept, merged, m_flow), mi_after, mi_before
+            # accept: one pyrUp of the merged flow, values unscaled (the
+            # reference's _upscale_flow_to_full_res quirk); reject: the doubled
+            # accumulated flow upscaled
+            src = torch.where(accept, merged, m_flow * 2.0)
+            return pyr_up(src, (int(full_shape[0]), int(full_shape[1]))), mi_after, mi_before
+        src = torch.where(accept, merged * 2.0, m_flow * float(reject_mult))
+        return pyr_up(src, (int(next_shape[0]), int(next_shape[1]))), mi_after, mi_before
 
 
 def _build_pyramid(arr: torch.Tensor, num_pyr_lvl: int, use_full_res: bool):
@@ -161,8 +170,9 @@ def _register_whole(ref_img: torch.Tensor, mov_img: torch.Tensor, num_pyr_lvl: i
     """The whole multi-level registration: ``_fused_level_carry`` over the
     levels, coarsest first.  Returns ``(flow (H, W, 2), [(mi_after,
     mi_before) per level as 0-d device tensors], factors)``."""
-    ref_pyr, factors = _build_pyramid(ref_img, num_pyr_lvl, use_full_res)
-    mov_pyr, _ = _build_pyramid(mov_img, num_pyr_lvl, use_full_res)
+    with span("optflow.pyramid", ref_img.device):
+        ref_pyr, factors = _build_pyramid(ref_img, num_pyr_lvl, use_full_res)
+        mov_pyr, _ = _build_pyramid(mov_img, num_pyr_lvl, use_full_res)
     dtype = mov_img.dtype
     num_lvl = len(factors)
     full_shape = tuple(int(s) for s in mov_img.shape)
@@ -174,11 +184,12 @@ def _register_whole(ref_img: torch.Tensor, mov_img: torch.Tensor, num_pyr_lvl: i
         is_first = lvl == 0
         is_last = lvl == num_lvl - 1
         next_shape = full_shape if is_last else tuple(int(s) for s in mov_pyr[lvl + 1].shape)
-        with stage_timer(f"lvl{factors[lvl]} fused level+carry", ref_img.device):
+        with stage_timer(f"lvl{factors[lvl]} fused level+carry", ref_img.device, name="optflow.level",
+                         factor=factors[lvl]):
             m_flow, mi_after, mi_before = _fused_level_carry(
                 ref_pyr[lvl], mov_pyr[lvl], m_flow, grid, win_size, num_iter, use_dog,
                 tile_size, not is_first, max(shape) / tile_size < 2, dtype, band_rows,
-                is_first, is_last, next_shape, full_shape, use_full_res, reject_mult,
+                is_first, is_last, next_shape, full_shape, use_full_res, reject_mult, factors[lvl],
             )
         scores.append((mi_after, mi_before))
     return m_flow, scores, factors
@@ -258,16 +269,17 @@ class OptFlowRegistrator:
         check_img_dims_match(self._ref_img, self._mov_img)
         self._check_levels()
         torch_dtype_of(self._mov_img)  # raises for dtypes the warp cannot keep
-        if os.environ.get("MICROALIGNER_TPU_CARRY_LEVEL", "1") == "0":
-            return self._register_stepwise()
-        ref, mov = self._on_device(self._ref_img), self._on_device(self._mov_img)
-        with stage_timer("whole register", ref.device):
-            m_flow, scores, factors = _register_whole(
-                ref, mov, self.num_pyr_lvl, self.use_full_res_img, self.tile_size,
-                self.overlap, self._win_size(), self.num_iterations, self.use_dog,
-                self._reject_mult(), self.band_rows,
-            )
-        self._fetch_scores(factors, scores)
+        with span("optflow.register", self.device):
+            if os.environ.get("MICROALIGNER_TPU_CARRY_LEVEL", "1") == "0":
+                return self._register_stepwise()
+            ref, mov = self._on_device(self._ref_img), self._on_device(self._mov_img)
+            with stage_timer("whole register", ref.device, name="optflow.register_whole"):
+                m_flow, scores, factors = _register_whole(
+                    ref, mov, self.num_pyr_lvl, self.use_full_res_img, self.tile_size,
+                    self.overlap, self._win_size(), self.num_iterations, self.use_dog,
+                    self._reject_mult(), self.band_rows,
+                )
+            self._fetch_scores(factors, scores)
         self._log_scores()
         return m_flow
 
@@ -309,11 +321,12 @@ class OptFlowRegistrator:
             log("Pyramid factor", factor)
             shape = tuple(int(s) for s in mov_pyr[lvl].shape)
             grid = TileGrid.for_image(shape, self.tile_size, self.overlap)
-            with stage_timer(f"lvl{factor} fused level", mov_pyr[lvl].device):
+            with stage_timer(f"lvl{factor} fused level", mov_pyr[lvl].device, name="optflow.level",
+                             factor=factor):
                 this_flow, mi_after, mi_before = _fused_level(
                     ref_pyr[lvl], mov_pyr[lvl], m_flow, grid, self._win_size(), self.num_iterations,
                     self.use_dog, self.tile_size, lvl != 0, max(shape) / self.tile_size < 2, dtype,
-                    self.band_rows,
+                    self.band_rows, factor,
                 )
                 mi_after, mi_before = torch.stack([mi_after, mi_before]).cpu().tolist()
             self.last_scores.append((factor, mi_after, mi_before))

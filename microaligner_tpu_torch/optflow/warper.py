@@ -46,6 +46,7 @@ from microaligner_tpu_torch.tiles import (
     tile_origins,
 )
 from microaligner_tpu_torch.utils.device import resolve_device
+from microaligner_tpu_torch.utils.logging import span
 
 __all__ = [
     "Warper",
@@ -243,7 +244,8 @@ class Warper:
 
     def warp_device(self) -> torch.Tensor:
         """:meth:`warp` but the result stays on ``device`` as a tensor of the
-        image's dtype, rounded and clipped inside the band warp."""
+        image's dtype, rounded and clipped inside the band warp (the span
+        ``optflow.warp`` under ``MICROALIGNER_TPU_PROFILE``)."""
         image = self.image
         flow = self.flow
         if _missing(image):
@@ -251,10 +253,11 @@ class Warper:
         if _missing(flow):
             raise ValueError("No flow provided")
         dtype = torch_dtype_of(image)
-        img_t = torch.as_tensor(image).to(self.device)
-        flow_t = torch.as_tensor(flow).to(self.device, torch.float32)
-        grid = TileGrid.for_image(tuple(img_t.shape), self.tile_size, self.overlap)
-        out = warp_tiled_dtype(img_t, flow_t, grid, dtype, self.band_rows)
+        with span("optflow.warp", self.device):
+            img_t = torch.as_tensor(image).to(self.device)
+            flow_t = torch.as_tensor(flow).to(self.device, torch.float32)
+            grid = TileGrid.for_image(tuple(img_t.shape), self.tile_size, self.overlap)
+            out = warp_tiled_dtype(img_t, flow_t, grid, dtype, self.band_rows)
         self.image = np.array([])
         self.flow = np.array([])
         return out

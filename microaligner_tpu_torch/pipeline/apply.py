@@ -21,6 +21,15 @@ propagate failures to the caller.  Every put into a queue checks its peer
 queue when the writer dies after the check), and a writer that is still
 alive with no progress after the join timeout (dead NFS mount, hung
 filesystem) raises rather than silently returning with planes unwritten.
+
+Under ``MICROALIGNER_TPU_PROFILE`` a call is the span ``pipeline.apply``
+(``planes``), and its steps are spans under it on each thread: the reader's
+``apply.read`` (the next plane from the iterable) and ``apply.stage`` (a free
+pinned slot, the host copy, issuing the host->device copy), the caller's
+``apply.wait_plane`` (blocked on the reader) and ``apply.warp``
+(``device_fn``, with timing events), the writer's ``apply.write`` (the
+device->host copy, then ``write_fn``).  The host threads' spans take no
+device events and never synchronise.
 """
 
 from __future__ import annotations
@@ -33,6 +42,8 @@ from typing import Callable, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+
+from microaligner_tpu_torch.utils.logging import current_span, span
 
 __all__ = ["stream_apply"]
 
@@ -144,9 +155,20 @@ def stream_apply(
 
     def reader():
         try:
-            for key, plane in planes:
-                if not _checked_put(rq, (key, *to_device(plane)), done.is_set):
+            it = iter(planes)
+            while True:
+                with span("apply.read", parent=parent) as s:
+                    item = next(it, _STOP)
+                    if item is not _STOP:
+                        s.set(key=item[0])
+                if item is _STOP:
+                    break
+                key, plane = item
+                with span("apply.stage", parent=parent, key=key, bytes=plane.nbytes):
+                    item = (key, *to_device(plane))
+                if not _checked_put(rq, item, done.is_set):
                     return
+                item = None  # the staged plane is the caller's now: hold no reference to it
         except Exception as e:  # decode/H2D failure -> caller
             read_errors.append(e)
         finally:
@@ -160,7 +182,8 @@ def stream_apply(
             key, out, ready = item
             try:
                 progress[0] = time.monotonic()  # starting an item is progress
-                write_fn(key, to_host(out, ready))
+                with span("apply.write", parent=parent, key=key, bytes=out.nbytes):
+                    write_fn(key, to_host(out, ready))
                 progress[0] = time.monotonic()
             except Exception as e:  # propagate to the caller
                 write_errors.append(e)
@@ -172,38 +195,45 @@ def stream_apply(
 
     rt = threading.Thread(target=reader, daemon=True, name="stream_apply_reader")
     wt = threading.Thread(target=writer, daemon=True, name="stream_apply_writer")
-    rt.start()
-    wt.start()
-    try:
-        while True:
-            item = rq.get()
-            if item is _STOP:
-                break
-            key, plane, ready = item
-            if ready is not None:
-                stream = torch.cuda.current_stream(device)
-                stream.wait_event(ready)
-                plane.record_stream(stream)
-            out = device_fn(plane)
-            done_ev = None
-            if pinned:
-                done_ev = torch.cuda.Event()
-                done_ev.record(torch.cuda.current_stream(device))
-            if not _checked_put(wq, (key, out, done_ev), writer_gone):
-                break
-    finally:
-        done.set()  # unblocks a reader stuck on a full rq
-        _checked_put(wq, _STOP, writer_gone)
-        # Join in slices and only give up when the writer has made NO progress
-        # for ``join_timeout_s`` — a big plane to a slow disk is "slow", a dead
-        # NFS mount is "hung"; a fixed-length join can't tell them apart.
-        while True:
-            wt.join(timeout=min(30.0, join_timeout_s))
-            if not wt.is_alive():
-                break
-            if time.monotonic() - progress[0] > join_timeout_s:
-                break
-        rt.join(timeout=join_timeout_s)
+    with span("pipeline.apply") as whole:
+        parent = current_span()  # the worker threads' spans belong to this call
+        rt.start()
+        wt.start()
+        n = 0
+        try:
+            while True:
+                with span("apply.wait_plane"):
+                    item = rq.get()
+                if item is _STOP:
+                    break
+                key, plane, ready = item
+                if ready is not None:
+                    stream = torch.cuda.current_stream(device)
+                    stream.wait_event(ready)
+                    plane.record_stream(stream)
+                with span("apply.warp", device, key=key):
+                    out = device_fn(plane)
+                n += 1
+                done_ev = None
+                if pinned:
+                    done_ev = torch.cuda.Event()
+                    done_ev.record(torch.cuda.current_stream(device))
+                if not _checked_put(wq, (key, out, done_ev), writer_gone):
+                    break
+        finally:
+            done.set()  # unblocks a reader stuck on a full rq
+            _checked_put(wq, _STOP, writer_gone)
+            # Join in slices and only give up when the writer has made NO progress
+            # for ``join_timeout_s`` — a big plane to a slow disk is "slow", a dead
+            # NFS mount is "hung"; a fixed-length join can't tell them apart.
+            while True:
+                wt.join(timeout=min(30.0, join_timeout_s))
+                if not wt.is_alive():
+                    break
+                if time.monotonic() - progress[0] > join_timeout_s:
+                    break
+            rt.join(timeout=join_timeout_s)
+            whole.set(planes=n)
     if write_errors:
         raise write_errors[0]
     if read_errors:

@@ -176,7 +176,7 @@ def do_feature_reg(struct: DatasetStruct, ref_cycle_id: int, num_pyr_lvl: int, n
     padding: Dict[int, tuple] = {}
 
     ref_ch = struct.ref_channel_ids[ref_cycle_id]
-    with stage_timer("feature z-max projection", device):
+    with stage_timer("feature z-max projection", device, name="runner.feature_projection"):
         ref_img = read_and_max_project_pages(struct.img_paths[ref_cycle_id][ref_ch],
                                              struct.tiff_pages[ref_cycle_id][ref_ch], device)
     ref_img, ref_pad = pad_to_shape(ref_img, target_shape)
@@ -191,12 +191,12 @@ def do_feature_reg(struct: DatasetStruct, ref_cycle_id: int, num_pyr_lvl: int, n
             padding[cyc] = ref_pad
             continue
         ch = struct.ref_channel_ids[cyc]
-        with stage_timer("feature z-max projection", device):
+        with stage_timer("feature z-max projection", device, name="runner.feature_projection"):
             mov_img = read_and_max_project_pages(struct.img_paths[cyc][ch],
                                                  struct.tiff_pages[cyc][ch], device)
         mov_img, padding[cyc] = pad_to_shape(mov_img, target_shape)
         freg.mov_img = mov_img
-        with stage_timer("feature register", device):
+        with stage_timer("feature register", device, name="runner.feature_register"):
             tmat_per_cycle[cyc] = freg.register(reuse_ref_img=True)
     return tmat_per_cycle, padding
 
@@ -250,7 +250,7 @@ def transform_and_save_freg_imgs(struct: DatasetStruct, out_dir: Path, filenames
             mm[0, out_ch, z_id] = plane if work_dtype else plane.astype(img_dtype)
             mm.flush()
 
-        with stage_timer("feature apply", device):
+        with stage_timer("feature apply", device, name="runner.feature_apply"):
             stream_apply(planes(), device_fn, write_fn, device=device)
         if not save_to_stack:
             mm.close()
@@ -359,9 +359,9 @@ def register_and_save_ofreg_imgs(
 
         if cyc == first_cycle:
             log("Skipping as it is a reference image")
-            with stage_timer("z-max projection", device):
+            with stage_timer("z-max projection", device, name="runner.projection"):
                 ref_img = read_and_max_project_pages(paths, pages, device)
-            with stage_timer("copy reference cycle"):
+            with stage_timer("copy reference cycle", name="runner.copy_reference"):
                 for ch_id, ch in enumerate(struct.tiff_pages[cyc]):
                     for z_id, z in enumerate(struct.img_paths[cyc][ch]):
                         mm[0, out_channel(ch_id), z_id] = read_tiff_page(
@@ -369,7 +369,7 @@ def register_and_save_ofreg_imgs(
                         )
                         mm.flush()
         else:
-            with stage_timer("z-max projection", device):
+            with stage_timer("z-max projection", device, name="runner.projection"):
                 mov_img = read_and_max_project_pages(paths, pages, device)
             ofreg.ref_img = ref_img
             ofreg.mov_img = mov_img
@@ -380,7 +380,7 @@ def register_and_save_ofreg_imgs(
             warper.image = mov_img
             warper.flow = flow_dev
             # next cycle registers against this; it stays on the device
-            with stage_timer("warp reference", device):
+            with stage_timer("warp reference", device, name="runner.warp_reference"):
                 ref_img = warper.warp_device()
             log(f"Saving Cycle {cyc} [{cyc_id + 1}/{len(cycles)}]")
             grid = TileGrid.for_image(tuple(flow_dev.shape[:2]), tile_size, overlap)
@@ -403,7 +403,7 @@ def register_and_save_ofreg_imgs(
                 mm[0, out_ch, z_id] = plane if work_dtype else round_to_numpy_dtype(plane, img_dtype)
                 mm.flush()
 
-            with stage_timer("apply", device):
+            with stage_timer("apply", device, name="runner.apply"):
                 stream_apply(planes(), device_fn, write_fn, device=device)
         if not save_to_stack:
             mm.close()

@@ -17,6 +17,7 @@ import torch
 
 from microaligner_tpu_torch.io.tiff import read_tiff_page
 from microaligner_tpu_torch.ops.filters import minmax_normalize_u8
+from microaligner_tpu_torch.utils.logging import span
 
 __all__ = ["max_project_u8", "read_and_max_project_pages"]
 
@@ -24,17 +25,20 @@ __all__ = ["max_project_u8", "read_and_max_project_pages"]
 def max_project_u8(planes: Iterable, device) -> torch.Tensor:
     """Z-max of ``planes`` (numpy arrays or tensors of one shape and integer
     or float dtype, any iterable: a generator keeps one plane on the host)
-    on ``device``, min-max normalized to a u8 tensor."""
+    on ``device``, min-max normalized to a u8 tensor (the span
+    ``pages.project`` under ``MICROALIGNER_TPU_PROFILE``)."""
     proj = None
-    for p in planes:
-        t = torch.as_tensor(np.asarray(p) if not isinstance(p, torch.Tensor) else p)
-        # copy in the plane's own dtype, then widen on the device; float32
-        # holds every u8/u16 value exactly (torch has no max for uint16)
-        t = t.to(device).to(torch.float32)
-        proj = t if proj is None else torch.maximum(proj, t)
-    if proj is None:
-        raise ValueError("max_project_u8 needs at least one plane")
-    return minmax_normalize_u8(proj)
+    with span("pages.project", device) as s:
+        for n, p in enumerate(planes, 1):
+            t = torch.as_tensor(np.asarray(p) if not isinstance(p, torch.Tensor) else p)
+            # copy in the plane's own dtype, then widen on the device; float32
+            # holds every u8/u16 value exactly (torch has no max for uint16)
+            t = t.to(device).to(torch.float32)
+            proj = t if proj is None else torch.maximum(proj, t)
+        if proj is None:
+            raise ValueError("max_project_u8 needs at least one plane")
+        s.set(planes=n)
+        return minmax_normalize_u8(proj)
 
 
 def read_and_max_project_pages(img_paths: Dict[int, Path], tiff_pages: Dict[int, int],

@@ -586,6 +586,34 @@ def test_stream_apply_pinned_on_card(gen, dev):
 
 
 @pytest.mark.cuda
+def test_spans_on_card(gen, dev, monkeypatch):
+    """Under MICROALIGNER_TPU_PROFILE a span on the card takes timing events
+    that read the device's time without a synchronise inside the span, and
+    the pinned apply's spans keep every plane: its host threads' spans take
+    no events, its warps do."""
+    from microaligner_tpu_torch.utils import logging as plog
+
+    monkeypatch.setenv("MICROALIGNER_TPU_PROFILE", "1")
+    x = torch.randn(4096, 4096, device=dev)
+    torch.cuda.synchronize(dev)
+    with plog.span("test.matmul", dev) as s:
+        for _ in range(8):
+            x = x @ x.T / 4096.0
+    assert s.events is not None and plog.device_s(s) > 0
+    planes = [(i, gen.integers(0, 65535, (512, 520)).astype(np.uint16)) for i in range(5)]
+    got = {}
+    first = max((e.id for e in plog.spans()), default=0)
+    stream_apply(iter(planes), lambda t: t.flip(0), lambda k, v: got.__setitem__(k, v.copy()), device=dev)
+    mine = [e for e in plog.spans() if e.id > first]
+    for k, p in planes:
+        np.testing.assert_array_equal(got[k], p[::-1])
+    assert [e.attrs["key"] for e in mine if e.name == "apply.warp"] == list(range(5))
+    assert all(e.events is not None and plog.device_s(e) >= 0 for e in mine if e.name == "apply.warp")
+    host = [e for e in mine if e.name in ("apply.read", "apply.stage", "apply.wait_plane", "apply.write")]
+    assert len(host) == 6 + 5 + 6 + 5 and all(e.events is None for e in host)
+
+
+@pytest.mark.cuda
 def test_match_near_ties_on_card_equal_cpu(gen, dev):
     """Ratio tests within float32 rounding of their threshold are decided in
     float64, so cuBLAS and the CPU's BLAS give the same matches."""
