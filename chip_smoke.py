@@ -56,7 +56,12 @@ Run it from the repository root; with no arguments it needs one card.  Phases, e
    for K3's bf16 entry its multiply-adds over the 989 TFLOP/s of the bf16
    tensor cores) and, where one
    PyTorch call computes the same function (``F.grid_sample`` for K1 and
-   K5, ``F.conv2d`` for K6), that call's time;
+   K5, ``F.conv2d`` for K6), that call's time; K7 (``check_k7``, the NMI
+   gate's DoG, a generator of its own) bit for bit against its plain
+   version on u8 textures of 20480^2, 8192^2, 2048^2 and 1024^2, timed
+   there beside its operations bound (324 float32 operations a pixel at
+   half of 67 TFLOP/s: none may fuse into an FMA), its bytes bound (11 a
+   pixel) and its plain version;
 3. parity: a 1024^2 pair through ``OptFlowRegistrator.register_device`` on
    the card against the same pair through the plain versions on the CPU;
    then the unpaired Farneback route (``MICROALIGNER_TPU_PALLAS_POLY=1``)
@@ -223,7 +228,8 @@ TOL = {"K1": "0: bit-equal to its plain version", "K2": "1e-5*max|plain|+1e-6", 
        "K2 bf16": "0: bit-equal to its plain version",
        "K3 bf16": "flow mean 1e-4 px, max 1e-2 px; row pass one bf16 unit + 2 (2r+1) 2^-24 sum|c x|; "
                   "float64: 1.1x mean, +5e-3 px max",
-       "K4 bf16": "0: bit-equal to its plain version"}
+       "K4 bf16": "0: bit-equal to its plain version",
+       "K7": "0: bit-equal to its plain version"}
 TYPED = ("K2 bf16", "K3 bf16", "K4 bf16")
 # NVIDIA H100 SXM: HBM3 rate, float32 rate outside the tensor cores, dense bf16 tensor-core rate
 H100_BYTES_PER_S, H100_F32_FLOPS, H100_BF16_TC_FLOPS = 3.35e12, 67e12, 989e12
@@ -286,18 +292,19 @@ class Counters:
     are summed."""
 
     def __init__(self):
-        from microaligner_tpu_torch.ops import kernel_agg, kernel_matrices, kernel_poly, kernel_sample as ks
+        from microaligner_tpu_torch.ops import kernel_agg, kernel_dog, kernel_matrices, kernel_poly, kernel_sample as ks
 
         # the bf16 entries' launches, a part of their wrapper's
         self.typed = {"K2 bf16": kernel_poly.poly_pair_m, "K3 bf16": kernel_agg.smooth5_solve,
                       "K4 bf16": kernel_matrices.update_matrices}
         self.wrappers = {"K1": (ks.sample_displaced,), "K2": (kernel_poly.poly_pair_m,),
                          "K3": (kernel_agg.smooth5_solve,), "K4": (kernel_matrices.update_matrices,),
-                         "K5": (ks.sample_displaced_multi, ks.sample_band_multi), "K6": (kernel_poly.poly_exp5,)}
+                         "K5": (ks.sample_displaced_multi, ks.sample_band_multi), "K6": (kernel_poly.poly_exp5,),
+                         "K7": (kernel_dog.dog_u8,)}
         self.plains = {"K1": (ks.sample_displaced_plain,), "K2": (kernel_poly.poly_pair_m_plain,),
                        "K3": (kernel_agg.smooth5_solve_plain,), "K4": (kernel_matrices.update_matrices_plain,),
                        "K5": (ks.sample_displaced_multi_plain, ks.sample_band_multi_plain),
-                       "K6": (kernel_poly.poly_exp5_plain,)}
+                       "K6": (kernel_poly.poly_exp5_plain,), "K7": (kernel_dog.dog_plain,)}
 
     def reset(self) -> None:
         for fns in (*self.wrappers.values(), *self.plains.values()):
@@ -706,6 +713,43 @@ def check_kernels(dev, rng) -> dict:
 ONE_PLANE_BANDS = ((torch.uint8, 4096, 4096), (torch.uint16, 4096, 4096), (torch.int16, 4096, 4096),
                    (torch.int32, 4096, 4096), (torch.float32, 4096, 4096), (torch.uint16, 4096, 4100),
                    (torch.uint8, 20480, 20480), (torch.uint16, 20480, 20480))
+
+
+def check_k7(dev, rng, sizes=(20480, 8192, 2048, 1024)) -> dict:
+    """K7, the DoG of the NMI gate, on u8 textures at the gate's level sizes:
+    bit for bit against its plain version, and timed beside its bounds (324
+    float32 operations a pixel at half of the card's float32 rate, since
+    none may fuse into an FMA; 11 bytes a pixel) and its plain version.
+    The kernels entry reports the largest size."""
+    from microaligner_tpu_torch.ops import kernel_dog
+    from microaligner_tpu_torch.ops.filters import minmax_normalize_u8
+
+    out = {"max_abs_err": 0, "library_ms": None, "sizes": {}}
+    for n in sizes:
+        img = minmax_normalize_u8(texture(rng, n, n, dev))
+        kernel_dog.dog_u8.launches = kernel_dog.dog_plain.calls = 0
+        got = kernel_dog.dog_u8(img, 41, 5, 9)
+        want = kernel_dog.dog_plain(img, 41, 5, 9)
+        torch.cuda.synchronize()
+        require(kernel_dog.dog_u8.launches == 1 and kernel_dog.dog_plain.calls == 1,
+                f"K7 {n}^2: {kernel_dog.dog_u8.launches} launches, {kernel_dog.dog_plain.calls} plain calls")
+        err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max())
+        require(err == 0, f"K7 {n}^2: max abs err {err} ({TOL['K7']})")
+        del got, want
+        reps = max(3, int(2e8 // (n * n)))
+        ms = cuda_ms(lambda: kernel_dog.dog_u8(img, 41, 5, 9), reps)
+        plain_ms = cuda_ms(lambda: kernel_dog.dog_plain(img, 41, 5, 9), max(2, reps // 50))
+        ops_ms = 324 * n * n / (H100_F32_FLOPS / 2) * 1e3
+        bytes_ms = 11 * n * n / H100_BYTES_PER_S * 1e3
+        line = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "ops_bound_ms": ops_ms,
+                "bytes_bound_ms": bytes_ms, "share": max(ops_ms, bytes_ms) / ms}
+        out["sizes"][n] = line
+        log(f"[kernels] K7 {n}^2 u8: bit-equal ({TOL['K7']}); {ms:.4f} ms against {ops_ms:.4f} ms of operations "
+            f"and {bytes_ms:.4f} ms of bytes ({100 * line['share']:.1f}% of the bound); plain {plain_ms:.2f} ms")
+        del img
+    out.update({k: out["sizes"][sizes[0]][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+    return out
 
 
 def typed_plane(gen, dt, h, w, dev) -> torch.Tensor:
@@ -3369,6 +3413,7 @@ def main():
     kernels["K6"] = check_k6(dev, rng)
     # a generator of its own: the phases after it draw the same data as before the typed entries came
     kernels.update(check_typed(dev, np.random.default_rng(20261017)))
+    kernels["K7"] = check_k7(dev, np.random.default_rng(20261020))
     report["parity"] = parity_run(dev, rng)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -3410,7 +3455,8 @@ def main():
                "K6": ("poly_exp5", "poly.cu", "microaligner_tpu/ops/pallas_poly.py:83"),
                "K2 bf16": ("poly_pair_m[bf16]", "poly.cu", "microaligner_tpu/ops/pallas_poly.py:172"),
                "K3 bf16": ("smooth5_solve[bf16]", "agg_tc.cu", "microaligner_tpu/ops/pallas_agg.py:160"),
-               "K4 bf16": ("update_matrices[bf16]", "matrices.cu", "microaligner_tpu/ops/pallas_matrices.py:63")}
+               "K4 bf16": ("update_matrices[bf16]", "matrices.cu", "microaligner_tpu/ops/pallas_matrices.py:63"),
+               "K7": ("dog_u8", "dog.cu", "none: the JAX package leaves the DoG to XLA")}
     # each path's launches, counted from 0 just before it and read just after
     paths = ("main", "unpaired", "zstack", "cli_4096", "routes_parity", "routes_per_tile_20480", "routes_drivers",
              "routes_cli_4096", "routes_feature", "routes_strict", "cli_20480", "feature", "chained_4096", "chained_20480", "auto",

@@ -328,21 +328,21 @@ def round_to_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def _dog_core(img: torch.Tensor, low_sigma: int, high_sigma: int) -> torch.Tensor:
-    fimg = minmax_normalize_f32(img)
+    """The u8 DoG of a 2-D image: K7 on the card, its plain version on the
+    CPU (``ops/kernel_dog.py``, which builds on this module)."""
+    from microaligner_tpu_torch.ops.kernel_dog import dog_u8
+
     ksize = low_sigma * 4 * 2 + 1  # the reference's "as in opencv" kernel size
-    ls = gaussian_blur(fimg, ksize, low_sigma)
-    hs = gaussian_blur(fimg, ksize, high_sigma)
-    return minmax_normalize_u8(hs - ls)
+    return dog_u8(img, ksize, low_sigma, high_sigma)
 
 
 def dog_traced(img: torch.Tensor, use_it: bool = True, low_sigma: int = 5,
                high_sigma: int = 9) -> torch.Tensor:
-    """``dog`` without a host round trip: a u8 image keeps the zero-image
-    passthrough on the device; other dtypes always take the processed path."""
+    """``dog`` without a host round trip.  An all-zero u8 image needs no
+    passthrough: its scales are 0, so the processed path gives it back as
+    zeros."""
     if not use_it:
         return img
-    if img.dtype == torch.uint8:
-        return torch.where(img.max() == 0, img, _dog_core(img, low_sigma, high_sigma))
     return _dog_core(img, low_sigma, high_sigma)
 
 

@@ -59,6 +59,10 @@ multiplied in float32: the same exact products, summed in another order),
 mixed formula's bound of features/match.py; cuBLAS's
 ``allow_bf16_reduced_precision_reduction`` is as it was after each call;
 the matches on the card equal the CPU's on that route.
+
+K7, the DoG of the NMI gate, rounds every product and sum where its plain
+version does: it is held bit for bit to ``dog_plain``, on its own and inside
+one ``_fused_level`` (the flow and both gate scores).
 """
 
 
@@ -66,7 +70,7 @@ import numpy as np
 import pytest
 import torch
 
-from microaligner_tpu_torch.ops import kernel_agg, kernel_matrices, kernel_poly, kernel_sample
+from microaligner_tpu_torch.ops import kernel_agg, kernel_dog, kernel_matrices, kernel_poly, kernel_sample
 from microaligner_tpu_torch.ops.filters import gaussian_blur
 from microaligner_tpu_torch.optflow import farneback as tfb
 from microaligner_tpu_torch.pipeline.apply import stream_apply
@@ -788,3 +792,92 @@ def test_per_tile_register_on_card(gen, dev, monkeypatch):
     after = _per_tile_counts()
     assert out.device.type == "cuda" and out.shape == (420, 460, 2)
     assert all(after[k] > before[k] for k in ("K1", "K2", "K3", "K4")) and after["K5"] == before["K5"]
+
+
+def _dog_image(gen, dev, kind, h, w):
+    """An (h, w) input of K7: ``texture`` (u8 blurred noise), ``warp`` (such a
+    texture under a seeded smooth warp), ``constant``, ``zeros``,
+    ``two_value`` (u8), ``u16`` and ``f32`` (a texture in [-1, 2])."""
+    from microaligner_tpu_torch.ops.warp import bilinear_remap
+
+    if kind == "constant":
+        return torch.full((h, w), 7, dtype=torch.uint8, device=dev)
+    if kind == "zeros":
+        return torch.zeros((h, w), dtype=torch.uint8, device=dev)
+    if kind == "two_value":
+        return torch.from_numpy((gen.integers(0, 2, (h, w)) * 200 + 17).astype(np.uint8)).to(dev)
+    tex = gaussian_blur(torch.from_numpy(gen.random((h, w), dtype=np.float32)).to(dev), 13, 2.0)
+    tex = (tex - tex.min()) / (tex.max() - tex.min())
+    if kind == "warp":
+        amp, phase = gen.uniform(1.0, 4.0), gen.uniform(0.0, 6.28)
+        ys = torch.arange(h, device=dev, dtype=torch.float32).view(h, 1)
+        xs = torch.arange(w, device=dev, dtype=torch.float32).view(1, w)
+        tex = bilinear_remap(tex, xs + amp * torch.sin(ys / 50 + phase), ys + amp * torch.cos(xs / 70 - phase))
+    if kind == "f32":
+        return (tex * 3 - 1).contiguous()
+    if kind == "u16":
+        return (tex * 65535).round().to(torch.int32).to(torch.uint16)
+    return (tex * 255).round().to(torch.uint8)
+
+
+def _k7_equal(img, ksize=41, low=5, high=9):
+    launches = kernel_dog.dog_u8.launches
+    got = kernel_dog.dog_u8(img, ksize, low, high)
+    torch.cuda.synchronize()
+    assert kernel_dog.dog_u8.launches == launches + 1
+    assert got.dtype == torch.uint8 and got.shape == img.shape
+    assert torch.equal(got, kernel_dog.dog_plain(img, ksize, low, high))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(1024, 1024), (8192, 8192), (1000, 1000), (101, 357), (357, 101), (7, 300),
+                                 (1256, 20480)])
+def test_k7(gen, dev, h, w):
+    _k7_equal(_dog_image(gen, dev, "texture", h, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["warp", "constant", "zeros", "two_value", "u16", "f32"])
+@pytest.mark.parametrize("h,w", [(1000, 1000), (101, 357), (7, 300)])
+def test_k7_inputs(gen, dev, kind, h, w):
+    _k7_equal(_dog_image(gen, dev, kind, h, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ksize,low,high", [(1, 5, 9), (9, 1, 2), (17, 2, 0), (41, 3, 7), (81, 10, 18)])
+@pytest.mark.parametrize("h,w", [(101, 357), (7, 300)])
+def test_k7_kernel_sizes(gen, dev, ksize, low, high, h, w):
+    """41 taps take the unrolled instantiation; every other odd size up to
+    81 the looped one."""
+    _k7_equal(_dog_image(gen, dev, "texture", h, w), ksize, low, high)
+
+
+@pytest.mark.cuda
+def test_k7_fused_level_equals_plain(gen, dev, monkeypatch):
+    """One OptFlowReg level at 1024^2 with K7 in its three gate DoGs gives
+    the flow and both gate scores of the same call with the plain DoG."""
+    from microaligner_tpu_torch.optflow.registrator import _fused_level
+
+    mov, ref = (x[0].round().to(torch.uint8) for x in _smooth_pair(gen, dev, 1, 1024, 1024))
+    args = (ref, mov, None, TileGrid.for_image((1024, 1024), 500, 100), 99, 3, False, 500, False, False,
+            torch.uint8, 256)
+    launches = kernel_dog.dog_u8.launches
+    flow, after, before = _fused_level(*args)
+    torch.cuda.synchronize()
+    assert kernel_dog.dog_u8.launches == launches + 3
+    monkeypatch.setattr(kernel_dog, "dog_u8", lambda img, k, lo, hi: kernel_dog.dog_plain(img, k, lo, hi))
+    calls = kernel_dog.dog_plain.calls
+    pflow, pafter, pbefore = _fused_level(*args)
+    assert kernel_dog.dog_plain.calls == calls + 3
+    assert torch.equal(flow, pflow) and torch.equal(after, pafter) and torch.equal(before, pbefore)
+
+
+@pytest.mark.cuda
+def test_k7_refuses(dev):
+    img = torch.zeros((3, 40, 50), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="2-D"):
+        kernel_dog.dog_u8(img, 41, 5, 9)
+    with pytest.raises(ValueError, match="dtype"):
+        kernel_dog.dog_u8(img[0].to(torch.int32), 41, 5, 9)
+    with pytest.raises(ValueError, match="kernel size"):
+        kernel_dog.dog_u8(img[0], kernel_dog.MAX_KSIZE + 2, 11, 19)

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 from microaligner_tpu.ops import filters as jf
 from microaligner_tpu.ops import pad as jpad
 from microaligner_tpu_torch.ops import filters as tf
+from microaligner_tpu_torch.ops import kernel_dog
 from microaligner_tpu_torch.ops import pad as tpad
 
 torch.set_num_threads(1)
@@ -95,11 +96,23 @@ def test_minmax_constant_image():
     )
 
 
-@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
-def test_dog(rng, dtype):
-    img = cv.GaussianBlur(_img(rng, (96, 110), dtype).astype(np.float32), (0, 0), 2.0).astype(dtype)
+def _dog_composed(img: torch.Tensor, low_sigma: int = 5, high_sigma: int = 9) -> torch.Tensor:
+    """The DoG as the filters compose it, written out here as the reference
+    of its plain version (K7's CPU path)."""
+    fimg = tf.minmax_normalize_f32(img)
+    ksize = low_sigma * 8 + 1
+    return tf.minmax_normalize_u8(tf.gaussian_blur(fimg, ksize, high_sigma) - tf.gaussian_blur(fimg, ksize, low_sigma))
+
+
+@pytest.mark.parametrize("shape", [(96, 110), (7, 300), (45, 13)])
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.float32])
+def test_dog(rng, dtype, shape):
+    raw = _img(rng, shape, np.uint16 if dtype == np.float32 else dtype)
+    img = cv.GaussianBlur(raw.astype(np.float32), (0, 0), 2.0).astype(dtype)
     want = np.asarray(jf.dog(img, True))
-    got = tf.dog(torch.from_numpy(img), True).numpy()
+    got_t = tf.dog(torch.from_numpy(img), True)
+    assert torch.equal(got_t, _dog_composed(torch.from_numpy(img)))
+    got = got_t.numpy()
     assert got.dtype == np.uint8
     # an FMA under jit moves a value across a .5 tie now and then: one level
     # at most, on at most 0.5% of pixels
@@ -115,6 +128,44 @@ def test_dog_passthrough(rng):
     zeros = torch.zeros((32, 32), dtype=torch.uint8)
     np.testing.assert_array_equal(tf.dog(zeros, True).numpy(), np.asarray(jf.dog(zeros.numpy(), True)))
     np.testing.assert_array_equal(tf.dog_traced(zeros, True).numpy(), zeros.numpy())
+
+
+@pytest.mark.parametrize("shape", [(96, 110), (7, 300), (1, 5), (300, 2)])
+@pytest.mark.parametrize("low,high", [(5, 9), (3, 7), (10, 18)])
+def test_dog_kernel_args(shape, low, high):
+    """The taps, radius and fold tables K7's wrapper hands the kernel are the
+    plain version's: ``_taps(gaussian_kernel(ksize, sigma))`` of both sigmas
+    and ``_reflect101_index`` of both axes."""
+    ksize = low * 8 + 1
+    args = kernel_dog.kernel_args(*shape, ksize, low, high)
+    r = args.radius
+    assert r == low * 4
+    assert args.taps.dtype == torch.float32 and args.taps.shape == (2, ksize)
+    assert args.taps[0].tolist() == tf._taps(tf.gaussian_kernel(ksize, low))
+    assert args.taps[1].tolist() == tf._taps(tf.gaussian_kernel(ksize, high))
+    assert args.folds.dtype == torch.int32 and args.folds.numel() == shape[0] + shape[1] + 4 * r
+    for table, size in ((args.folds[: shape[0] + 2 * r], shape[0]), (args.folds[shape[0] + 2 * r :], shape[1])):
+        assert torch.equal(table.long(), tf._reflect101_index(size, r, "cpu"))
+        assert int(table.min()) >= 0 and int(table.max()) < size
+
+
+def test_dog_u8_takes_the_plain_version_on_the_cpu(rng):
+    img = torch.from_numpy(_img(rng, (40, 52)))
+    calls, launches = kernel_dog.dog_plain.calls, kernel_dog.dog_u8.launches
+    got = tf.dog_traced(img, True)
+    assert kernel_dog.dog_plain.calls == calls + 1 and kernel_dog.dog_u8.launches == launches
+    assert torch.equal(got, kernel_dog.dog_plain(img, 41, 5, 9))
+
+
+@pytest.mark.parametrize("shape,dtype,ksize", [((3, 40, 50), torch.uint8, 41), ((40,), torch.uint8, 41),
+                                               ((40, 50), torch.int32, 41), ((40, 50), torch.float64, 41),
+                                               ((40, 50), torch.uint8, 83), ((40, 50), torch.uint8, 40)])
+def test_dog_u8_refuses(shape, dtype, ksize):
+    """K7's wrapper refuses what the kernel does not take, on either device:
+    a tensor that is not 2-D, a dtype other than u8, u16 or float32, and a
+    kernel size that is even or above 81."""
+    with pytest.raises(ValueError, match="dog_u8"):
+        kernel_dog.dog_u8(torch.zeros(shape, dtype=dtype), ksize, 5, 9)
 
 
 @pytest.mark.parametrize("shape", [(100, 100), (101, 103), (37, 64)])
