@@ -62,7 +62,7 @@ from microaligner_tpu_torch.ops.pad import zero_pad
 from microaligner_tpu_torch.parallel.tile_runner import current_tile_mesh, tile_map
 from microaligner_tpu_torch.tiles import TileGrid, split_into_tiles
 from microaligner_tpu_torch.utils.device import resolve_device
-from microaligner_tpu_torch.utils.logging import log
+from microaligner_tpu_torch.utils.logging import counter, log, profiling_enabled
 
 __all__ = ["Features", "find_features", "register_img_pair", "match_features", "daisy_normalize",
            "daisy_operand_dtype", "match_operand_dtype"]
@@ -203,7 +203,12 @@ def find_features_tiled(img: torch.Tensor, grid: TileGrid, k: int, normalize: bo
     or banded, as the JAX package's ``_find_features_tiled_jit`` picks.
     ``normalize`` None reads :func:`daisy_normalize` and ``daisy_dtype``
     (the operands of DAISY's blur products) None reads
-    :func:`daisy_operand_dtype` for ``img``'s device, on this call."""
+    :func:`daisy_operand_dtype` for ``img``'s device, on this call.
+
+    Under ``MICROALIGNER_TPU_PROFILE`` each call records a
+    ``features.keypoints`` counter: the rows kept (``rows``, ``tiles`` x
+    ``k``), the valid ones (``valid``) and the tiles with no valid row
+    (``empty_tiles``), both as device scalars."""
     if normalize is None:
         normalize = daisy_normalize()
     if daisy_dtype is None:
@@ -216,6 +221,9 @@ def find_features_tiled(img: torch.Tensor, grid: TileGrid, k: int, normalize: bo
         coords, desc, valid, resp = _find_features_banded(img, grid, k, normalize, daisy_dtype)
     coords = coords + _tile_origins(grid, img.device)[:, None, :]
     n = grid.num_tiles * k
+    if profiling_enabled():
+        counter("features.keypoints", rows=n, valid=valid.sum(), tiles=grid.num_tiles,
+                empty_tiles=(~valid.reshape(grid.num_tiles, k).any(dim=1)).sum())
     return coords.reshape(n, 2), desc.reshape(n, -1), valid.reshape(n), resp.reshape(n)
 
 

@@ -8,8 +8,10 @@ synchronise is taken.  On, the span tree carries the stage names and their
 attributes, every child lies inside its parent, the apply's worker threads
 hang under the call's ``pipeline.apply`` span, the ``[profile]`` lines are
 as before, the ``features.knn`` counter agrees with the features and with
-``match.near_ties``, and every result is bit-identical to the run with
-profiling off.
+``match.near_ties``, the ``features.keypoints`` counter with each call's
+keypoint rows, and every result is bit-identical to the run with
+profiling off.  On a half-blank image, on each of the three feature paths,
+the keypoint counter counts the tiles with no keypoint.
 """
 
 import contextlib
@@ -26,6 +28,8 @@ import torch
 
 from microaligner_tpu_torch import FeatureRegistrator, OptFlowRegistrator, Warper
 from microaligner_tpu_torch.features import match as tmatch
+from microaligner_tpu_torch.features import registrator as tregistrator
+from microaligner_tpu_torch.features import tile_features as ttf
 from microaligner_tpu_torch.ops.warp import inverse_of
 from microaligner_tpu_torch.pipeline import runner
 from microaligner_tpu_torch.pipeline.apply import stream_apply
@@ -111,6 +115,18 @@ class _Spy:
         return spy
 
 
+def _keeping_valid(found: list):
+    """``find_features_tiled`` that appends (tiles, k, valid) of each call
+    to ``found``."""
+    inner = ttf.find_features_tiled
+
+    def find(img, grid, k, *args, **kwargs):
+        out = inner(img, grid, k, *args, **kwargs)
+        found.append((grid.num_tiles, k, out[2].clone()))
+        return out
+    return find
+
+
 def _run(profile: bool, spy=None) -> dict:
     ref, mov = _planes(19)
     before_spans = max((s.id for s in plog.spans()), default=0)
@@ -121,6 +137,10 @@ def _run(profile: bool, spy=None) -> dict:
     if spy is not None:
         for owner, attr in ((torch.profiler, "record_function"), (torch.cuda, "Event"), (torch.cuda, "synchronize")):
             patches.enter_context(mock.patch.object(owner, attr, spy.wrap(attr, getattr(owner, attr))))
+    found = []
+    find = _keeping_valid(found)
+    for owner in (ttf, tregistrator):
+        patches.enter_context(mock.patch.object(owner, "find_features_tiled", find))
     old = os.environ.pop(PROFILE, None)
     if profile:
         os.environ[PROFILE] = "1"
@@ -135,6 +155,7 @@ def _run(profile: bool, spy=None) -> dict:
     result["counters"] = plog.counters()[before_counters:]
     result["log"] = out.getvalue()
     result["ties"] = {k: tmatch.near_ties[k] - ties[k] for k in ("calls", "rows")}
+    result["found"] = found
     return result
 
 
@@ -255,6 +276,62 @@ def test_knn_counter(runs):
         assert c.values["train_rows"] >= int(c.values["train_valid"]) > 0
     by_id = {s.id: s for s in on["spans"]}
     assert all(by_id[c.span].name == "features.match" for c in knn)
+
+
+def _check_keypoints(record, tiles: int, k: int, valid: torch.Tensor) -> None:
+    v = record.values
+    assert v["rows"] == tiles * k and v["tiles"] == tiles
+    assert isinstance(v["valid"], torch.Tensor) and isinstance(v["empty_tiles"], torch.Tensor)
+    assert int(v["valid"]) == int(valid.sum()) <= v["rows"]
+    assert int(v["empty_tiles"]) == int((~valid.view(tiles, k).any(dim=1)).sum())
+
+
+def test_keypoints_counter(runs):
+    on, off = runs["on"], runs["off"]
+    assert not [c for c in off["counters"] if c.name == "features.keypoints"]
+    keypoints = [c for c in on["counters"] if c.name == "features.keypoints"]
+    # one a call of find_features_tiled, the reference's levels and every round's
+    assert len(keypoints) == len(on["found"]) == len(off["found"]) > 0
+    for c, (tiles, k, valid) in zip(keypoints, on["found"]):
+        _check_keypoints(c, tiles, k, valid)
+    by_id = {s.id: s for s in on["spans"]}
+    finds = _named(on["spans"], "features.find")
+    in_find = [c for c in keypoints if c.span is not None and by_id[c.span].name == "features.find"]
+    assert [c.span for c in in_find] == [s.id for s in finds]
+    assert len(in_find) == len(FEATURE_FACTORS) * FEATURE_ROUNDS
+    # a round's valid rows are the knn's query rows of that round
+    knn = [c for c in on["counters"] if c.name == "features.knn"]
+    assert [int(c.values["valid"]) for c in in_find] == [int(c.values["query_valid"]) for c in knn]
+    assert [c.values["rows"] for c in in_find] == [c.values["query_rows"] for c in knn]
+
+
+@pytest.mark.parametrize("path", ["dense", "banded", "per_tile"])
+def test_keypoints_counter_counts_empty_tiles(monkeypatch, path):
+    env = {"dense": {"MICROALIGNER_TPU_FEATURE_DENSE": "1"},
+           "banded": {"MICROALIGNER_TPU_FEATURE_DENSE": "auto", "MICROALIGNER_TPU_FEATURE_DENSE_MAX_MPIX": "1e-9"},
+           "per_tile": {"MICROALIGNER_TPU_FEATURE_DENSE": "0"}}[path]
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    rng = np.random.default_rng(23)
+    img = cv.GaussianBlur(rng.random((240, 240), dtype=np.float32), (0, 0), 1.5)
+    img = cv.normalize(img, None, 0, 255, cv.NORM_MINMAX).astype(np.uint8)
+    img[:, 150:] = 0  # the last column of tiles and FAST's circle around it see only blank
+    grid = TileGrid.for_image(img.shape, 80, ttf.HALO)
+    k = ttf.features_per_tile(grid)
+    x = torch.from_numpy(img)
+    monkeypatch.delenv(PROFILE, raising=False)
+    before = len(plog.counters())
+    plain = ttf.find_features_tiled(x, grid, k)
+    assert len(plog.counters()) == before
+    monkeypatch.setenv(PROFILE, "1")
+    traced = ttf.find_features_tiled(x, grid, k)
+    new = plog.counters()[before:]
+    assert [c.name for c in new] == ["features.keypoints"]
+    for a, b in zip(plain, traced):
+        assert torch.equal(a, b)
+    _check_keypoints(new[0], grid.num_tiles, k, traced[2])
+    assert grid.num_tiles == 9 and int(new[0].values["empty_tiles"]) == 3
+    assert 0 < int(new[0].values["valid"]) < new[0].values["rows"]
 
 
 def test_results_bit_identical_with_profiling(runs):
