@@ -69,6 +69,7 @@ one ``_fused_level`` (the flow and both gate scores).
 import numpy as np
 import pytest
 import torch
+from _bounds import bounded_call
 
 from microaligner_tpu_torch.ops import kernel_agg, kernel_dog, kernel_matrices, kernel_poly, kernel_sample
 from microaligner_tpu_torch.ops.filters import gaussian_blur
@@ -569,22 +570,12 @@ def test_apply_mixed_dtypes_on_card(gen, dev):
 def test_stream_apply_pinned_on_card(gen, dev):
     """The reader's pinned ring and side stream, and the writer's pinned
     copy back, keep every plane and its order (more planes than buffers)."""
-    import threading
-
     planes = [(i, gen.integers(0, 65535, (64 + i, 70)).astype(np.uint16)) for i in range(7)]
-    got, errors = {}, []
-
-    def run():
-        try:
-            stream_apply(iter(planes), lambda t: (t.to(torch.float32) * 0.5).round().to(torch.uint16),
-                         lambda k, v: got.__setitem__(k, v.copy()), device=dev)
-        except Exception as e:  # reported below
-            errors.append(e)
-
-    t = threading.Thread(target=run, daemon=True)
-    t.start()
-    t.join(timeout=120)
-    assert not t.is_alive() and not errors, errors
+    got = {}
+    err, _ = bounded_call(stream_apply, bound_s=120)(
+        iter(planes), lambda t: (t.to(torch.float32) * 0.5).round().to(torch.uint16),
+        lambda k, v: got.__setitem__(k, v.copy()), device=dev)
+    assert err is None, err
     for k, p in planes:
         np.testing.assert_array_equal(got[k], np.round(p.astype(np.float32) * 0.5).astype(np.uint16))
 

@@ -11,19 +11,18 @@ outputs; this process runs the step on a one-device mesh and holds both
 ranks' outputs to it bit for bit, the histogram at exactly H * W.
 
 Every wait is bounded: ``init_process_group`` gets a finite timeout, and the
-workers are killed if they have not finished within ``_TIMEOUT_S``, so a hang
-fails the test instead of holding the run.
+workers are killed if they have not all finished within ``_TIMEOUT_S``
+(``tests/_bounds.py::run_workers``), so a hang fails the test instead of
+holding the run.
 """
 
-import os
 import socket
-import subprocess
-import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+from _bounds import run_workers
 
 from microaligner_tpu_torch.parallel import get_tile_mesh, init_distributed_from_env
 from microaligner_tpu_torch.parallel.step import make_sharded_register_step
@@ -83,24 +82,6 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _run_workers(script: Path, args_of, n: int) -> list:
-    """Start ``n`` workers, wait for all within ``_TIMEOUT_S`` (killing
-    every one that is still running after it), return their outputs."""
-    env = {k: v for k, v in os.environ.items() if k not in _DIST_VARS}
-    procs = [subprocess.Popen([sys.executable, str(script), *args_of(pid)], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True, env=env) for pid in range(n)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=_TIMEOUT_S)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    return [(p.returncode, out) for p, out in zip(procs, outs)]
-
-
 def test_two_process_tile_mesh(tmp_path, rng):
     h = w = 160  # 25 tiles of 32: the 4-shard axis is padded to 28
     ref = (rng.random((h, w)) * 255).astype(np.float32)
@@ -109,8 +90,9 @@ def test_two_process_tile_mesh(tmp_path, rng):
     script = tmp_path / "worker.py"
     script.write_text(_WORKER)
     coord = f"localhost:{_free_port()}"
-    results = _run_workers(script, lambda pid: [str(pid), coord, _REPO, str(tmp_path / "pair.npz"),
-                                                str(tmp_path / f"out{pid}.npz")], 2)
+    results = run_workers(script, lambda pid: [str(pid), coord, _REPO, str(tmp_path / "pair.npz"),
+                                               str(tmp_path / f"out{pid}.npz")], 2, _TIMEOUT_S,
+                          drop_env=_DIST_VARS)
     for pid, (rc, out) in enumerate(results):
         assert rc == 0 and f"MULTIHOST_OK {pid}" in out, f"worker {pid} failed:\n{out}"
 
@@ -136,7 +118,8 @@ def test_group_that_cannot_form_raises(tmp_path):
         "from microaligner_tpu_torch.parallel import init_distributed_from_env\n"
         "init_distributed_from_env(timeout_s=2)\n"
         "print('FORMED', flush=True)\n")
-    (rc, out), = _run_workers(script, lambda pid: [f"localhost:{_free_port()}"], 1)
+    (rc, out), = run_workers(script, lambda pid: [f"localhost:{_free_port()}"], 1, _TIMEOUT_S,
+                             drop_env=_DIST_VARS)
     assert rc != 0 and "FORMED" not in out, out
     assert "Timed out" in out or "timed out" in out, out
 

@@ -3,9 +3,10 @@
 package's ``_STOP`` put can hit (a writer that dies while the queue is full)
 and a stress run with a short thread switch interval.
 
-Every call runs in a thread joined with its own timeout, so no case here can
-hang the suite: a call that does not return in time fails the test.  The
-pinned-buffer path needs a card (``tests/test_torch_kernels_cuda.py``).
+Every call goes through ``tests/_bounds.py::bounded_call`` (a thread joined
+after 30 s), so no case here can hang the suite: a call that does not return
+in time fails the test.  The pinned-buffer path needs a card
+(``tests/test_torch_kernels_cuda.py``).
 """
 
 import sys
@@ -14,31 +15,13 @@ import time
 
 import numpy as np
 import torch
+from _bounds import bounded_call
 
 from microaligner_tpu_torch.pipeline.apply import stream_apply
 
 torch.set_num_threads(1)
 
-BOUND_S = 30.0
-
-
-def _bounded(*args, **kwargs):
-    """Run ``stream_apply`` in a thread; return (exception or None, seconds).
-    Fails the test if the call is still running after ``BOUND_S``."""
-    result = {}
-
-    def run():
-        try:
-            stream_apply(*args, **kwargs)
-        except Exception as e:  # handed to the test
-            result["error"] = e
-
-    t0 = time.monotonic()
-    t = threading.Thread(target=run, daemon=True)
-    t.start()
-    t.join(timeout=BOUND_S)
-    assert not t.is_alive(), f"stream_apply did not return within {BOUND_S} s"
-    return result.get("error"), time.monotonic() - t0
+_bounded = bounded_call(stream_apply)
 
 
 def test_order_and_content(rng):
