@@ -117,13 +117,9 @@ Run it from the repository root; with no arguments it needs one card.  Phases, e
    register, ``Warper.warp_device`` and ``_apply_flow_plane`` (K1-K4
    launched, K5 never; the main path's bars), timed beside the banded
    route on the same pair, and the 4096^2 OptFlowReg CLI (K5 never; the
-   CLI's MSE bar); the three OptFlow drivers (whole,
-   ``WHOLE_REGISTER=0``, ``CARRY_LEVEL=0``) on one 4096^2 pair, the same
-   accept/reject and flows within 1e-4 px; on config 1's 4096^2 pair the
-   FeatureReg drivers (``FUSED_REGISTER=0``, ``FUSED_LEVEL=0``: linear part
-   within 1e-4 and translation within 0.05 px of the whole route's) and
-   the per-tile feature path (``FEATURE_DENSE=0``: the whole level's
-   keypoints), each within 0.5 px of the truth, then ``FEATURE_DENSE=0``
+   CLI's MSE bar); on config 1's 4096^2 pair the per-tile feature path
+   (``FEATURE_DENSE=0``: the whole level's keypoints) beside the whole
+   route, each within 0.5 px of the truth, then ``FEATURE_DENSE=0``
    once at ``FEATURE_PER_TILE_N``^2, timed; FeatureReg under
    ``DAISY_NRM=0`` (the reference's raw descriptors) at config 1's
    parameters: at 1024^2 with and without DoG on the card and on the CPU
@@ -2096,9 +2092,8 @@ def auto_feature_pass(dev, rng, counters: "Counters", h=4096) -> dict:
 
 # -- phase 10 --------------------------------------------------------------
 
-ROUTE_VARIABLES = ("FLOW_DENSE", "FLOW_TILE_BATCH", "WHOLE_REGISTER", "CARRY_LEVEL", "FUSED_REGISTER",
-                   "FUSED_LEVEL", "FEATURE_DENSE", "FEATURE_DENSE_MAX_MPIX", "DAISY_NRM", "FLOW_BAND_ROWS",
-                   "AGG_PRECISION", "R_BF16", "MATCH_F32", "DAISY_EXACT")
+ROUTE_VARIABLES = ("FLOW_DENSE", "FLOW_TILE_BATCH", "FEATURE_DENSE", "FEATURE_DENSE_MAX_MPIX", "DAISY_NRM",
+                   "FLOW_BAND_ROWS", "AGG_PRECISION", "R_BF16", "MATCH_F32", "DAISY_EXACT")
 # FeatureReg's float32 route on the card (the CPU's only route): the card-against-CPU checks run on it
 FLOAT32_ROUTE = {"MATCH_F32": "1", "DAISY_EXACT": "1"}
 # the per-tile feature path's timed FeatureReg run: the largest plane the repo runs
@@ -2211,54 +2206,6 @@ def routes_per_tile_20480(dev, rng, counters: "Counters", n=20480, tile=1000, ov
     return res
 
 
-def routes_drivers(dev, rng, counters: "Counters", n=4096) -> dict:
-    """The three OptFlow drivers on one 4096^2 u8 pair on the default
-    route: whole, ``WHOLE_REGISTER=0`` and ``CARRY_LEVEL=0`` give the same
-    accept/reject and flows within 1e-4 px of the whole driver's (the JAX
-    package's bar for whole against per-level; in the port both values of
-    ``WHOLE_REGISTER`` run the same carry loop)."""
-    from microaligner_tpu_torch.ops.filters import minmax_normalize_u8
-    from microaligner_tpu_torch.optflow.registrator import OptFlowRegistrator
-
-    base = texture(rng, n, n, dev)
-    dx, dy = displacement(n, n, 3.0, 0.6, dev)
-    ref, mov = minmax_normalize_u8(base), minmax_normalize_u8(remap_rows(base, dx, dy))
-    del base, dx, dy
-    flows, decisions, secs, launches = {}, {}, {}, {}
-    for name, variables in (("whole", {}), ("per-level", {"WHOLE_REGISTER": "0"}), ("stepwise", {"CARRY_LEVEL": "0"})):
-        reg = OptFlowRegistrator(device=dev)
-        reg.num_pyr_lvl, reg.num_iterations, reg.tile_size, reg.overlap, reg.use_full_res_img = 3, 3, 1000, 100, True
-        reg.ref_img, reg.mov_img = ref, mov
-        with routes(**variables):
-            counters.reset()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            flows[name] = reg.register_device()
-            torch.cuda.synchronize()
-            secs[name] = time.perf_counter() - t0
-            got = counters.read(f"routes driver {name}", ("K1", "K2", "K3", "K4", "K5"))
-        launches = {k: launches.get(k, 0) + v for k, v in got.items()}
-        decisions[name] = [a > b for _, a, b in reg.last_scores]
-    errs = {k: float((flows[k] - flows["whole"]).abs().max()) for k in ("per-level", "stepwise")}
-    del flows
-    # timed again in the reverse order: each driver's time is the better of its two runs
-    for name, variables in (("stepwise", {"CARRY_LEVEL": "0"}), ("per-level", {"WHOLE_REGISTER": "0"}), ("whole", {})):
-        reg = OptFlowRegistrator(device=dev)
-        reg.num_pyr_lvl, reg.num_iterations, reg.tile_size, reg.overlap, reg.use_full_res_img = 3, 3, 1000, 100, True
-        reg.ref_img, reg.mov_img = ref, mov
-        with routes(**variables):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            reg.register_device()
-            torch.cuda.synchronize()
-            secs[name] = [secs[name], time.perf_counter() - t0]
-    log(f"[routes] three OptFlow drivers on a {n}^2 pair: {secs} s (forward, then reverse order); accept/reject "
-        f"{decisions}; max flow difference from the whole driver's {errs} px")
-    require(all(d == decisions["whole"] for d in decisions.values()), f"drivers: accept/reject differ {decisions}")
-    require(all(e < 1e-4 for e in errs.values()), f"drivers: flows differ {errs}")
-    return {"launches": launches, "secs": secs, "decisions": decisions["whole"], "max_flow_diff_px": errs}
-
-
 def routes_cli_4096(dev, planes, counters: "Counters") -> dict:
     """The OptFlowReg CLI at 4096^2 (the 4096^2 stack of phase 4 as an OME
     CycleStack) under ``FLOW_DENSE=0``: K1-K4 launched and K5 never, and
@@ -2288,10 +2235,8 @@ def routes_cli_4096(dev, planes, counters: "Counters") -> dict:
 
 
 def routes_feature(dev, rng, counters: "Counters", n=4096, n_big=FEATURE_PER_TILE_N) -> dict:
-    """Config 1's 4096^2 pair (``feature_pairs``) through the FeatureReg
-    drivers: ``FUSED_REGISTER=0`` and ``FUSED_LEVEL=0`` against the whole
-    route (linear part within 1e-4, translation within 0.05 px) and
-    ``FEATURE_DENSE=0``, each within 0.5 px of the truth at the corners;
+    """Config 1's 4096^2 pair (``feature_pairs``) through the whole route
+    and ``FEATURE_DENSE=0``, each within 0.5 px of the truth at the corners;
     the per-tile path's keypoints equal the whole level's on the pair's
     DoG'd reference; then ``FEATURE_DENSE=0`` once on an ``n_big``^2 pair,
     timed."""
@@ -2330,16 +2275,11 @@ def routes_feature(dev, rng, counters: "Counters", n=4096, n_big=FEATURE_PER_TIL
     ref, mov = pair(n)
     res, launches = {}, {}
     whole, res["whole"] = register(ref, mov, "whole")
-    for label, variables in (("FUSED_REGISTER=0", {"FUSED_REGISTER": "0"}), ("FUSED_LEVEL=0", {"FUSED_LEVEL": "0"}),
-                             ("FEATURE_DENSE=0", {"FEATURE_DENSE": "0"})):
-        tmat, res[label] = register(ref, mov, label, **variables)
-        lin, trans = float(np.abs(tmat[:, :2] - whole[:, :2]).max()), float(np.abs(tmat[:, 2] - whole[:, 2]).max())
-        res[label].update(linear_diff=lin, translation_diff_px=trans)
-        if label != "FEATURE_DENSE=0":
-            require(lin < 1e-4 and trans < 0.05, f"routes feature {label}: {lin} linear, {trans} px from whole")
+    tmat, res["FEATURE_DENSE=0"] = register(ref, mov, "FEATURE_DENSE=0", FEATURE_DENSE="0")
+    lin, trans = float(np.abs(tmat[:, :2] - whole[:, :2]).max()), float(np.abs(tmat[:, 2] - whole[:, 2]).max())
+    res["FEATURE_DENSE=0"].update(linear_diff=lin, translation_diff_px=trans)
     # timed again in the reverse order: each route's time is the better of its two runs
-    for label, variables in (("FEATURE_DENSE=0", {"FEATURE_DENSE": "0"}), ("FUSED_LEVEL=0", {"FUSED_LEVEL": "0"}),
-                             ("FUSED_REGISTER=0", {"FUSED_REGISTER": "0"}), ("whole", {})):
+    for label, variables in (("FEATURE_DENSE=0", {"FEATURE_DENSE": "0"}), ("whole", {})):
         _, again = register(ref, mov, label, **variables)
         res[label]["s"] = [res[label]["s"], again["s"]]
         launches = {k: launches.get(k, 0) + v for k, v in again["launches"].items()}
@@ -2526,7 +2466,6 @@ def alternate_routes(dev, rng, counters: "Counters", stack_planes) -> dict:
     require(parity["launches"]["K5"] == 0, "routes parity: K5 launched on the per-tile route")
     return {"routes_parity": parity,
             "routes_per_tile_20480": routes_per_tile_20480(dev, rng, counters),
-            "routes_drivers": routes_drivers(dev, rng, counters),
             "routes_cli_4096": routes_cli_4096(dev, stack_planes, counters),
             "routes_feature": routes_feature(dev, rng, counters),
             "routes_strict": routes_strict(dev, rng, counters)}
@@ -3458,8 +3397,8 @@ def main():
                "K4 bf16": ("update_matrices[bf16]", "matrices.cu", "microaligner_tpu/ops/pallas_matrices.py:63"),
                "K7": ("dog_u8", "dog.cu", "none: the JAX package leaves the DoG to XLA")}
     # each path's launches, counted from 0 just before it and read just after
-    paths = ("main", "unpaired", "zstack", "cli_4096", "routes_parity", "routes_per_tile_20480", "routes_drivers",
-             "routes_cli_4096", "routes_feature", "routes_strict", "cli_20480", "feature", "chained_4096", "chained_20480", "auto",
+    paths = ("main", "unpaired", "zstack", "cli_4096", "routes_parity", "routes_per_tile_20480", "routes_cli_4096",
+             "routes_feature", "routes_strict", "cli_20480", "feature", "chained_4096", "chained_20480", "auto",
              "mesh_step", "mesh_step_parity", "mesh_engines", "mesh_groups", "precision_route", "feature_precision")
     launches = {k: sum(report[path]["launches"].get(k, 0) for path in paths) for k in sources}
     for k in TYPED:  # a wrapper's launches less its bf16 entry's are its float32 entry's

@@ -15,22 +15,13 @@ and realigns from the original mov.  Matrices compose in float32 on the
 device.  ``register`` reads back once, at the end: the 2x3 matrix and the
 per-round diagnostics for the log.
 
-The JAX package's host-driven drivers are taken by its variables, read on
-every ``register``:
-
-* ``MICROALIGNER_TPU_FUSED_REGISTER=0`` (or ``FUSED_LEVEL=0``): the
-  per-level driver.  The reference pyramid's features come from
-  ``find_features`` a level, and per level the host rescales the coarser
-  levels' matrices (``_rescale_t_mat``) and multiplies them in float64
-  (``_multiply_transform_matrices``), pre-warps the level through K1
-  (``_transform_img_dev``) and aligns it (``_iterative_alignment``: the
-  device loop above once, with a logged identity when the reference level
-  has fewer than 3 features);
-* ``MICROALIGNER_TPU_FUSED_LEVEL=0`` also: each level's rounds are the host
-  loop ``_iterative_alignment_steps``: find and match (``_align_imgs``),
-  both NMI scores at once (``_mi_gate_pair``) read back, the host's validity
-  check (``_check_if_valid_transform``), and an accepted round realigns the
-  original mov by the float64 product of the accepted matrices.
+``register`` has one driver, this device loop.  The JAX package's
+variables that pick its host-driven drivers,
+``MICROALIGNER_TPU_FUSED_REGISTER=0`` (per level) and
+``MICROALIGNER_TPU_FUSED_LEVEL=0`` (per round), are ignored: eager PyTorch
+runs the same rounds whichever program the JAX package would compile, and
+each of its host drivers gives this loop's matrix within the bars of
+``tests/test_torch_routes_features.py``.
 
 Every route reads the JAX package's feature variables once a
 ``register`` (``features/routes.py``): ``MICROALIGNER_TPU_DAISY_NRM``
@@ -46,8 +37,7 @@ route are found again.
 
 from __future__ import annotations
 
-import os
-from typing import List, Tuple, Union
+from typing import List
 
 import numpy as np
 import torch
@@ -59,13 +49,11 @@ from microaligner_tpu_torch.features.tile_features import (
     HALO,
     Features,
     features_per_tile,
-    find_features,
     find_features_tiled,
-    register_img_pair,
 )
 from microaligner_tpu_torch.ops.affine_tiled import affine_warp_traced
-from microaligner_tpu_torch.ops.filters import dog, dog_traced, pyr_down, round_to_dtype
-from microaligner_tpu_torch.ops.mutual_info import mi_tiled_traced
+from microaligner_tpu_torch.ops.filters import dog_traced, pyr_down, round_to_dtype
+from microaligner_tpu_torch.ops.mutual_info import gate_scores
 from microaligner_tpu_torch.ops.warp import affine_warp
 from microaligner_tpu_torch.tiles import TileGrid
 from microaligner_tpu_torch.utils.device import resolve_device
@@ -83,15 +71,6 @@ def _mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """3 x 3 product as elementwise multiply-adds in a fixed order, so a
     CPU run and a card run compose the same float32 matrices."""
     return a[:, 0:1] * b[0:1, :] + a[:, 1:2] * b[1:2, :] + a[:, 2:3] * b[2:3, :]
-
-
-def _mi_gate_pair(ref_img: torch.Tensor, new_img: torch.Tensor, prev_img: torch.Tensor,
-                  tile_size: int) -> Tuple[float, float]:
-    """Both NMI gate scores (after, before) of a round, read back at once."""
-    rd = dog_traced(ref_img, True)
-    after = mi_tiled_traced(rd, dog_traced(new_img, True), tile_size)
-    before = mi_tiled_traced(rd, dog_traced(prev_img, True), tile_size)
-    return tuple(torch.stack([after, before]).cpu().tolist())
 
 
 def _valid_transform_traced(est3: torch.Tensor, img_shape) -> torch.Tensor:
@@ -157,8 +136,7 @@ def _level_align_body(ref_img, ref_feats: Features, mov_img, grid: TileGrid, k: 
             # the candidate warps the CURRENT aligned image; an accepted round
             # realigns from the ORIGINAL mov with the composed matrix
             cand = round_to_dtype(affine_warp_traced(aligned, est[:2]), dtype)
-            after = mi_tiled_traced(ref_gate_dog, dog_traced(cand, True), tile_size)
-            before = mi_tiled_traced(ref_gate_dog, dog_traced(aligned, True), tile_size)
+            after, before = gate_scores(ref_gate_dog, cand, aligned, tile_size)
             accept = (after > before) & _valid_transform_traced(est, tuple(mov_img.shape))
             composed = torch.where(accept, _mm3(composed, est), composed)
             realigned = round_to_dtype(affine_warp_traced(mov_img, composed[:2]), dtype)
@@ -316,22 +294,11 @@ class FeatureRegistrator:
     def _on_device(self, img) -> torch.Tensor:
         return torch.as_tensor(img).to(self.device)
 
-    @staticmethod
-    def _fused_register_enabled() -> bool:
-        return (os.environ.get("MICROALIGNER_TPU_FUSED_REGISTER", "1") != "0"
-                and os.environ.get("MICROALIGNER_TPU_FUSED_LEVEL", "1") != "0")
-
     def calc_ref_img_features(self, route: tuple | None = None):
         """The reference pyramid and its features, in ``route`` (None: the
         variables as they are now)."""
         self._route = _read_route(self.device) if route is None else route
         normalize, daisy_dtype, _ = self._route
-        if not self._fused_register_enabled():
-            self._ref_img_pyr, self._factors = self._generate_img_pyr(self._on_device(self._ref_img))
-            self._ref_pyr_features = [find_features(dog(lvl, self.use_dog), self.tile_size,
-                                                    normalize=normalize, daisy_dtype=daisy_dtype)
-                                      for lvl in self._ref_img_pyr]
-            return
         self._factors = self._pyr_factors()
         with stage_timer("feature reference pyramid", self.device, name="features.reference_pyramid"):
             pyr, feats = _calc_ref_fused(self._on_device(self._ref_img), tuple(self._factors),
@@ -353,8 +320,6 @@ class FeatureRegistrator:
                 self._route = route  # the cached features' DAISY route, this register's knn
             else:
                 self.calc_ref_img_features(route)
-            if not self._fused_register_enabled():
-                return self._register_per_level()
             tmat, diags = _register_fused(
                 self._ref_img_pyr, self._ref_pyr_features, self._on_device(self._mov_img),
                 tuple(self._factors), self.tile_size, self.num_iterations, self.use_dog, self._route)
@@ -374,109 +339,6 @@ class FeatureRegistrator:
             log("    Better alignment than before" if accepted > 0
                 else "    Worse alignment than before")
 
-    def _register_per_level(self) -> np.ndarray:
-        """The per-level driver (reference feature_registrator.py:75-116):
-        the host composes the levels' matrices in float64."""
-        mov_img_pyrs, _ = self._generate_img_pyr(self._on_device(self._mov_img))
-        fullscale_t_mat_list: List[np.ndarray] = []
-        for i, factor in enumerate(self._factors):
-            log("Pyramid factor", factor)
-            mov_lvl = mov_img_pyrs[i]
-            if i > 0:
-                rescaled = [self._rescale_t_mat(m, 1 / factor) for m in fullscale_t_mat_list]
-                mov_lvl = self._transform_img_dev(mov_lvl, self._multiply_transform_matrices(rescaled))
-            with stage_timer(f"feature lvl{factor}", self.device, name="features.level", factor=factor):
-                _, t_mat = self._iterative_alignment(self._ref_img_pyr[i], self._ref_pyr_features[i],
-                                                     mov_lvl, factor)
-            fullscale_t_mat_list.append(self._rescale_t_mat(t_mat, factor))
-        return self._multiply_transform_matrices(fullscale_t_mat_list)
-
-    def _generate_img_pyr(self, arr: torch.Tensor) -> Tuple[List[torch.Tensor], List[int]]:
-        """The Gaussian pyramid on ``arr``'s device, smallest level first
-        (reference feature_registrator.py:134-160), and its factors."""
-        factors = self._pyr_factors_of(tuple(arr.shape))
-        return _build_pyr_levels(arr, factors), factors
-
-    def _transform_img_dev(self, img: torch.Tensor, t_mat: np.ndarray) -> torch.Tensor:
-        """:meth:`transform_img` on the device: the affine warp through K1,
-        rounded back to the image's dtype.  The matrix goes to the device in
-        float32 and is inverted there (``affine_warp_traced``), so the host
-        drivers warp as the device loop does: the JAX package's host and
-        traced warps give the same image too."""
-        fwd = torch.as_tensor(np.asarray(t_mat, np.float64), dtype=torch.float32, device=img.device)
-        return round_to_dtype(affine_warp_traced(img, fwd), img.dtype)
-
-    def _iterative_alignment(self, ref_img, ref_features: Features, mov_img, factor: int | None = None):
-        """One level's rounds: (aligned image, 2x3 float64 matrix).  The
-        device loop (``_level_align_body``) once, read back at its end, or,
-        under ``MICROALIGNER_TPU_FUSED_LEVEL=0``, the host loop."""
-        if os.environ.get("MICROALIGNER_TPU_FUSED_LEVEL", "1") == "0":
-            return self._iterative_alignment_steps(ref_img, ref_features, mov_img)
-        if not ref_features.is_valid():
-            # matching gives the identity and the gate rejects every round; the
-            # device loop would say nothing of why, so the log says it here
-            log("    No usable reference features (< 3 valid) — identity transform")
-            for i in range(self.num_iterations):
-                log("    Iteration", i + 1, "/", self.num_iterations)
-                log("    Worse alignment than before")
-            return mov_img, np.eye(2, 3)
-        grid, k = _level_grid(mov_img.shape, self.tile_size)
-        tmat, aligned, diag = _level_align_body(ref_img, ref_features, mov_img, grid, k, self.tile_size,
-                                                self.num_iterations, self.use_dog, self._route,
-                                                factor=factor)
-        fetched = torch.cat([tmat.to(torch.float64).reshape(-1), diag.reshape(-1)]).cpu().numpy()
-        self._log_diag(fetched[6:].reshape(self.num_iterations, 5))
-        return aligned, fetched[:6].reshape(2, 3)
-
-    def _iterative_alignment_steps(self, ref_img, ref_features: Features, mov_img):
-        """The host-driven loop of a level's rounds (reference
-        feature_registrator.py:162-192)."""
-        t_matrices: List[np.ndarray] = []
-        aligned_img = mov_img
-        for i in range(self.num_iterations):
-            log("    Iteration", i + 1, "/", self.num_iterations)
-            mov_img_aligned, est_t_mat = self._align_imgs(ref_features, aligned_img)
-            mi_after, mi_before = _mi_gate_pair(ref_img, mov_img_aligned, aligned_img, self.tile_size)
-            log("    MI score after:", mi_after, "| MI score before:", mi_before)
-            if mi_after > mi_before and self._check_if_valid_transform(est_t_mat, tuple(mov_img.shape)):
-                log("    Better alignment than before")
-                t_matrices.append(est_t_mat)
-                # realign the ORIGINAL mov by the composed matrix (reference :186)
-                aligned_img = self._transform_img_dev(mov_img, self._multiply_transform_matrices(t_matrices))
-            else:
-                log("    Worse alignment than before")
-                t_matrices.append(np.eye(2, 3))
-        return aligned_img, self._multiply_transform_matrices(t_matrices)
-
-    def _align_imgs(self, ref: Union[torch.Tensor, Features], mov_img: torch.Tensor):
-        """(mov warped by the estimate, estimate): find and match the
-        features, fit the matrix; the identity leaves mov as it is."""
-        normalize, daisy_dtype, match_dtype = self._route
-        ref_features = ref if isinstance(ref, Features) else find_features(
-            dog(ref, self.use_dog), self.tile_size, normalize=normalize, daisy_dtype=daisy_dtype)
-        mov_features = find_features(dog_traced(mov_img, self.use_dog), self.tile_size, normalize=normalize,
-                                     daisy_dtype=daisy_dtype)
-        transform_mat = register_img_pair(ref_features, mov_features, match_dtype)
-        if np.array_equal(transform_mat, np.eye(2, 3)):
-            return mov_img, np.eye(2, 3)
-        return self._transform_img_dev(mov_img, transform_mat), transform_mat
-
-    @staticmethod
-    def _multiply_transform_matrices(mat_list: List[np.ndarray]) -> np.ndarray:
-        if len(mat_list) == 1:
-            return mat_list[0]
-        res = np.vstack([mat_list[0], [0, 0, 1]])
-        for m in mat_list[1:]:
-            res = res @ np.vstack([m, [0, 0, 1]])
-        return res[:2, :]
-
-    @staticmethod
-    def _rescale_t_mat(t_mat: np.ndarray, scale: float) -> np.ndarray:
-        out = np.array(t_mat, dtype=np.float64)
-        out[0, 2] *= scale
-        out[1, 2] *= scale
-        return out
-
     def transform_img(self, img, t_mat: np.ndarray) -> np.ndarray:
         """Affine warp keeping the dtype (integers round half to even and
         clip); one bilinear path for every size (the reference splits at
@@ -493,31 +355,3 @@ class FeatureRegistrator:
         """The reference's API (feature_registrator.py:118-126): the same
         path as :meth:`transform_img`."""
         return self.transform_img(img, t_mat)
-
-    def _check_if_valid_transform(self, t_mat, img_shape) -> bool:
-        return self._check_if_inside_borders(t_mat, img_shape) and self._check_if_proper_scale(t_mat)
-
-    @staticmethod
-    def _check_if_proper_scale(t_mat) -> bool:
-        """Scale within [0.3, 3] by the 2-D decomposition
-        (feature_registrator.py:240-266)."""
-        a, b, c, d = t_mat[0, 0], t_mat[1, 0], t_mat[0, 1], t_mat[1, 1]
-        det = a * d - b * c
-        if a != 0 or b != 0:
-            r = np.sqrt(a * a + b * b)
-            scale = (r, det / r)
-        elif c != 0 or d != 0:
-            s = np.sqrt(c * c + d * d)
-            scale = (det / s, s)
-        else:
-            return False
-        return 0.3 <= abs(scale[0]) <= 3 and 0.3 <= abs(scale[1]) <= 3
-
-    @staticmethod
-    def _check_if_inside_borders(t_mat, img_shape) -> bool:
-        """The transformed image centre stays inside the image
-        (feature_registrator.py:268-278)."""
-        cy, cx = img_shape[0] // 2, img_shape[1] // 2
-        center = np.vstack([t_mat, [0, 0, 1]]) @ np.array([cx, cy, 1.0])
-        border = np.array([img_shape[1], img_shape[0], 1.0])
-        return not np.any(border - np.abs(center) < 0)

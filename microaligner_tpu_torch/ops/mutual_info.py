@@ -11,6 +11,10 @@ The joint histogram of a group of chunks is one ``torch.bincount`` over
 ``chunk * 65536 + a * 256 + b``; counts are exact integers.  The entropies
 are taken in float64 from those counts, so a score is exact to float64
 rounding (the JAX package sums them in float32).
+
+``gate_scores`` is the registrators' gate, the one place both engines take
+it: the reference's gate DoG against the DoG of the candidate and of the
+current image.
 """
 
 from __future__ import annotations
@@ -19,12 +23,14 @@ from typing import List, Tuple
 
 import torch
 
+from microaligner_tpu_torch.ops.filters import dog_traced
 from microaligner_tpu_torch.utils.logging import log
 
 __all__ = [
     "nmi_u8",
     "mi_tiled",
     "mi_tiled_traced",
+    "gate_scores",
     "mutual_information_test",
     "check_if_higher_similarity",
 ]
@@ -92,6 +98,17 @@ def mi_tiled_traced(arr1: torch.Tensor, arr2: torch.Tensor, tile_size: int) -> t
     if a.numel() - nfull * chunk > 0:
         scores.append(_nmi_flat(a[nfull * chunk :], b[nfull * chunk :]).view(1))
     return torch.cat(scores).mean()
+
+
+def gate_scores(ref_dog: torch.Tensor, new_img: torch.Tensor, cur_img: torch.Tensor,
+                tile_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The NMI gate's ``(after, before)``, 0-d float64 device tensors: the
+    reference's gate DoG (``dog_traced(ref, True)``) against the DoG of
+    ``new_img``, then of ``cur_img``.  The gate always DoGs, whatever the
+    registration's ``use_dog``."""
+    after = mi_tiled_traced(ref_dog, dog_traced(new_img, True), tile_size)
+    before = mi_tiled_traced(ref_dog, dog_traced(cur_img, True), tile_size)
+    return after, before
 
 
 def nmi_u8(a, b) -> float:

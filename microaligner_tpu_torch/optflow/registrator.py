@@ -6,41 +6,34 @@ accumulated flow, optional DoG, the banded or per-tile (or whole-image)
 Farneback fused with the post-warp, the NMI gate, the tile-wise flow
 composition and the pyrUp to the next level.
 
-``register_device`` takes one of the JAX package's drivers, chosen by its
-variables on each call:
+``register_device`` has one driver, the carry loop (``_register_whole``,
+one ``_fused_level_carry`` a level).  The JAX package's variables that cut
+its registration into compiled programs, ``MICROALIGNER_TPU_WHOLE_REGISTER``
+and ``MICROALIGNER_TPU_CARRY_LEVEL`` (its stepwise host loop), are ignored:
+eager PyTorch launches level by level whichever program the JAX package
+would compile, and each of its drivers gives this loop's flow within the
+bars of ``tests/test_torch_routes_optflow.py``.
 
-* ``MICROALIGNER_TPU_CARRY_LEVEL=0``: the stepwise host loop
-  (``_register_stepwise``): each level's gate scores are read back and the
-  host picks the next flow (accept: compose and upscale; reject: keep,
-  upscale or zero);
-* else the carry loop (``_register_whole``), one ``_fused_level_carry`` a
-  level.  The JAX package's ``MICROALIGNER_TPU_WHOLE_REGISTER`` chooses
-  between one compiled program for the whole registration (``1``, its
-  default) and one a level; eager PyTorch launches level by level either
-  way, so both of its values run this same loop.
-
-In the carry loop the accept/reject decision of each level is a 0-d device
-tensor that selects the next flow with ``torch.where``, so nothing is read
-back to the host until the end, where all gate scores are fetched at once
-for the log.  Every level goes through ``MICROALIGNER_TPU_FLOW_DENSE``'s
-route for its flow, its pre-warp and its post-warp, under both drivers.
-The JAX package's quirks are kept: the last level is upscaled without scaling its values
-(one pyrUp from the original flow, ``_upscale_flow_to_full_res``),
-``replicate_reject_upscale_bug`` doubles a rejected mid level's flow
-twice, and a single level at (almost) full size keeps its raw flow.
+Each level's accept/reject decision is a 0-d device tensor that selects
+the next flow with ``torch.where``, so nothing is read back to the host
+until the end, where all gate scores are fetched at once for the log.
+Every level goes through ``MICROALIGNER_TPU_FLOW_DENSE``'s route for its
+flow, its pre-warp and its post-warp.  The JAX package's quirks are kept:
+the last level is upscaled without scaling its values (one pyrUp from the
+original flow, the reference's ``_upscale_flow_to_full_res``),
+``replicate_reject_upscale_bug`` doubles a rejected mid level's flow twice,
+and a single level at (almost) full size keeps its raw flow.
 """
 
 from __future__ import annotations
 
-import math
-import os
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from microaligner_tpu_torch.ops.filters import dog_traced, pyr_down, pyr_up
-from microaligner_tpu_torch.ops.mutual_info import mi_tiled_traced
+from microaligner_tpu_torch.ops.mutual_info import gate_scores
 from microaligner_tpu_torch.ops.warp import compose_flows
 from microaligner_tpu_torch.optflow.farneback import _farneback_core_parts
 from microaligner_tpu_torch.optflow.flow_calc import calc_flow_and_warp_tiled
@@ -99,9 +92,7 @@ def _fused_level(ref_lvl, mov_lvl, m_flow, grid: TileGrid, win_size: int, num_it
                 ref_dog, mov_dog, mov_this, grid, win_size, num_iter, dtype, band_rows
             )
     with span("optflow.gate", dev, factor=factor):
-        gate_ref = dog_traced(ref_lvl, True)
-        mi_after = mi_tiled_traced(gate_ref, dog_traced(mov_warped, True), tile_size)
-        mi_before = mi_tiled_traced(gate_ref, dog_traced(mov_lvl, True), tile_size)
+        mi_after, mi_before = gate_scores(dog_traced(ref_lvl, True), mov_warped, mov_lvl, tile_size)
     return this_flow, mi_after, mi_before
 
 
@@ -262,16 +253,13 @@ class OptFlowRegistrator:
     def register_device(self) -> torch.Tensor:
         """:meth:`register` but the flow stays on ``device``.  The per-level
         gate scores land in ``last_scores`` as ``(factor, mi_after,
-        mi_before)``: read back once, at the end, on the carry loop, level
-        by level on the stepwise one."""
+        mi_before)``, read back once, at the end."""
         check_img_is_provided(self._ref_img, "ref")
         check_img_is_provided(self._mov_img, "mov")
         check_img_dims_match(self._ref_img, self._mov_img)
         self._check_levels()
         torch_dtype_of(self._mov_img)  # raises for dtypes the warp cannot keep
         with span("optflow.register", self.device):
-            if os.environ.get("MICROALIGNER_TPU_CARRY_LEVEL", "1") == "0":
-                return self._register_stepwise()
             ref, mov = self._on_device(self._ref_img), self._on_device(self._mov_img)
             with stage_timer("whole register", ref.device, name="optflow.register_whole"):
                 m_flow, scores, factors = _register_whole(
@@ -305,95 +293,3 @@ class OptFlowRegistrator:
                 "(min dim 100 px after downscale) and use_full_res_img is "
                 "False; enable use_full_res_img or reduce num_pyr_lvl"
             )
-
-    def _register_stepwise(self) -> torch.Tensor:
-        """The host-driven accept/reject loop (``MICROALIGNER_TPU_CARRY_LEVEL=0``):
-        each level's two gate scores are read back, and the host picks the
-        next flow (reference optflow_registrator.py:134-169)."""
-        ref_pyr, factors = self._generate_img_pyr(self._on_device(self._ref_img))
-        mov_pyr, _ = self._generate_img_pyr(self._on_device(self._mov_img))
-        dtype = mov_pyr[-1].dtype
-        full_shape = tuple(int(s) for s in self._mov_img.shape)
-        num_lvl = len(factors)
-        m_flow = None
-        self.last_scores = []
-        for lvl, factor in enumerate(factors):
-            log("Pyramid factor", factor)
-            shape = tuple(int(s) for s in mov_pyr[lvl].shape)
-            grid = TileGrid.for_image(shape, self.tile_size, self.overlap)
-            with stage_timer(f"lvl{factor} fused level", mov_pyr[lvl].device, name="optflow.level",
-                             factor=factor):
-                this_flow, mi_after, mi_before = _fused_level(
-                    ref_pyr[lvl], mov_pyr[lvl], m_flow, grid, self._win_size(), self.num_iterations,
-                    self.use_dog, self.tile_size, lvl != 0, max(shape) / self.tile_size < 2, dtype,
-                    self.band_rows, factor,
-                )
-                mi_after, mi_before = torch.stack([mi_after, mi_before]).cpu().tolist()
-            self.last_scores.append((factor, mi_after, mi_before))
-            log("    MI score after:", mi_after, "| MI score before:", mi_before)
-            is_last = lvl == num_lvl - 1
-            next_shape = full_shape if is_last else tuple(int(s) for s in mov_pyr[lvl + 1].shape)
-            if mi_after > mi_before:
-                log("    Better alignment than before")
-                if lvl == 0:
-                    if num_lvl > 1:
-                        m_flow = self._pyr_up_dev(this_flow * 2, next_shape)
-                    else:
-                        m_flow = self._upscale_flow_to_full_res(this_flow, factor)
-                elif is_last:
-                    m_flow = self._merge_list_of_flows([m_flow, this_flow])
-                    if not self.use_full_res_img:
-                        m_flow = self._upscale_flow_to_full_res(m_flow, factor)
-                else:
-                    m_flow = self._merge_list_of_flows([m_flow, this_flow])
-                    m_flow = self._pyr_up_dev(m_flow * 2, next_shape)
-            else:
-                log("    Worse alignment than before")
-                if lvl == 0:
-                    m_flow = torch.zeros(next_shape + (2,), dtype=torch.float32, device=this_flow.device)
-                elif is_last:
-                    if not self.use_full_res_img:
-                        m_flow = self._pyr_up_dev(m_flow * 2, full_shape)
-                else:
-                    m_flow = self._pyr_up_dev(m_flow * self._reject_mult(), next_shape)
-        return m_flow
-
-    # -- helpers -----------------------------------------------------------
-
-    @staticmethod
-    def _pyr_up_dev(flow: torch.Tensor, dst_shape) -> torch.Tensor:
-        return pyr_up(flow, (int(dst_shape[0]), int(dst_shape[1])))
-
-    def _generate_img_pyr(self, arr: torch.Tensor) -> Tuple[List[torch.Tensor], List[int]]:
-        """Smallest-first pyramid on ``arr``'s device; stops before a side
-        would drop below 100 px (optflow_registrator.py:175-202)."""
-        self._check_levels()
-        return _build_pyramid(arr, self.num_pyr_lvl, self.use_full_res_img)
-
-    def _upscale_flow_to_full_res(self, flow: torch.Tensor, pyramid_factor: int) -> torch.Tensor:
-        """The reference's chain of pyrUps to full resolution
-        (optflow_registrator.py:204-215), quirk kept: its last step
-        upscales the ORIGINAL flow, so the result is one pyrUp from ``flow``
-        to the full size, values not doubled (the caller's job)."""
-        if abs(flow.shape[0] - self._ref_img.shape[0]) <= 1:
-            return flow
-        num_lvls = int(math.log2(pyramid_factor))
-        upscaled = flow
-        for i in range(num_lvls):
-            if i == num_lvls - 1:
-                upscaled = self._pyr_up_dev(flow, self._ref_img.shape)
-            else:
-                h, w = upscaled.shape[:2]
-                upscaled = self._pyr_up_dev(upscaled, (h * 2, w * 2))
-        return upscaled
-
-    def _merge_flow_in_tiles(self, flow1: torch.Tensor, flow2: torch.Tensor) -> torch.Tensor:
-        """Tile-wise flow composition (optflow_registrator.py:217-233)."""
-        grid = TileGrid.for_image(tuple(flow1.shape[:2]), self.tile_size, self.overlap)
-        return compose_flows_tiled(flow1, flow2, grid)
-
-    def _merge_list_of_flows(self, flow_list: List[torch.Tensor]) -> torch.Tensor:
-        m_flow = flow_list[0]
-        for nxt in flow_list[1:]:
-            m_flow = self._merge_flow_in_tiles(m_flow, nxt)
-        return m_flow

@@ -6,7 +6,8 @@ package on the same numpy inputs:
   ``_find_features_tiled``;
 * (b) the mirror of tests/test_features.py::test_register_strict_parity_norm
   on its pair, both modes and both DoG settings;
-* (c) the host FeatureReg drivers (``FUSED_REGISTER=0``, ``FUSED_LEVEL=0``);
+* (c) the JAX package's host FeatureReg drivers (``FUSED_REGISTER=0``,
+  ``FUSED_LEVEL=0``, set for its run only) against the port's one driver;
 * (d) a small chained CLI;
 * (e) ``match_descriptors`` on raw-magnitude descriptors.
 
@@ -22,9 +23,9 @@ Bars and their reasons:
   draws from another random stream, tests/test_torch_feature_registrator.py);
   with DoG in strict mode the JAX package's gate rejects every round, and
   the port's must too: the identity on both sides;
-* the host drivers against the port's whole route: the linear part within
-  1e-4 and the translation within 0.05 px, the JAX package's bars for its
-  own drivers;
+* the port's driver against the JAX package's host drivers: the four
+  corners within 0.1 px, and the port's matrix equal to its run computed
+  once for the file, bit for bit;
 * near-ties: every ratio test and nearest index equals a float64 golden.
 """
 
@@ -177,13 +178,14 @@ def test_register_strict_parity_norm(nrm, use_dog, strict_pair, monkeypatch):
 
 @pytest.mark.parametrize("variable", ["FUSED_REGISTER", "FUSED_LEVEL"])
 def test_host_driver_strict(variable, strict_pair, monkeypatch):
-    """The drivers on the pair's half-resolution level, without DoG."""
+    """The JAX package's host driver that ``variable=0`` picks, against the
+    port's driver, on the pair's half-resolution level, without DoG."""
     ref, mov, _ = strict_pair
     strict_whole = _port_whole(strict_pair, "0", False, full_res=False)
-    _set(monkeypatch, DAISY_NRM="0", **{variable: "0"})
+    _set(monkeypatch, DAISY_NRM="0")
     got = _register(TReg, ref, mov, False, full_res=False, device="cpu")
-    np.testing.assert_allclose(got[:, :2], strict_whole[:, :2], atol=1e-4)
-    np.testing.assert_allclose(got[:, 2], strict_whole[:, 2], atol=0.05)
+    np.testing.assert_array_equal(got, strict_whole)
+    _set(monkeypatch, DAISY_NRM="0", **{variable: "0"})
     want = _register(JReg, ref, mov, False, full_res=False)
     pts = _corners(ref.shape)
     assert np.abs(got @ pts - want @ pts).max() < 0.1

@@ -41,12 +41,12 @@ Bars and their reasons (u = 2^-24, the float32 unit roundoff):
   start from RANSAC estimates drawn from another random stream, so the
   linear part differs by up to 1.4e-4 on this pair (5.6e-5 on the float32
   route), and the JAX package's bars for its own drivers (1e-4 linear,
-  0.05 px) do not apply between the packages.  Within the port: the host
-  drivers (``FUSED_REGISTER=0``, ``FUSED_LEVEL=0``: the host composes the
-  matrices in float64) within those driver bars of the whole route; the
-  per-tile path (``FEATURE_DENSE=0``; one tile a level on this pair) and a
-  CPU mesh of 2 bit-equal to the whole route on one device; each taking the
-  bf16 route in every blur product and every knn (recorded).
+  0.05 px) do not apply between the packages.  Within the port: the
+  JAX package's host-driver variables (``FUSED_REGISTER=0``,
+  ``FUSED_LEVEL=0``, which the port ignores), the per-tile path
+  (``FEATURE_DENSE=0``; one tile a level on this pair) and a CPU mesh of 2
+  bit-equal to the whole route on one device; each taking the bf16 route
+  in every blur product and every knn (recorded).
   ``reuse_ref_img`` finds the reference features again when ``DAISY_EXACT``
   changes, and keeps them when only ``MATCH_F32`` does.
 """
@@ -448,11 +448,7 @@ def test_routes_take_bf16(route, legacy_pair, whole_bf16, card_route, monkeypatc
     with use_tile_mesh([torch.device("cpu")] * (2 if "mesh-2" in route else 1)):
         got = _register(TReg(device="cpu"), ref, mov)
     assert _routes_taken(card_route) == {BF16}
-    if route.startswith("FUSED"):
-        np.testing.assert_allclose(got[:, :2], whole_bf16[:, :2], atol=1e-4)
-        np.testing.assert_allclose(got[:, 2], whole_bf16[:, 2], atol=0.05)
-    else:
-        np.testing.assert_array_equal(got, whole_bf16)
+    np.testing.assert_array_equal(got, whole_bf16)
 
 
 def test_reuse_follows_daisy_exact(legacy_pair, card_route, monkeypatch):

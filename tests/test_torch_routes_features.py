@@ -4,12 +4,14 @@ package's same routes, on the same numpy inputs:
 * the per-tile feature path (``MICROALIGNER_TPU_FEATURE_DENSE=0``) and the
   whole-level gate (``FEATURE_DENSE`` ``auto``/``1``/``0`` and
   ``FEATURE_DENSE_MAX_MPIX``);
-* the host-driven FeatureReg drivers (``MICROALIGNER_TPU_FUSED_REGISTER=0``,
-  ``MICROALIGNER_TPU_FUSED_LEVEL=0``).
+* the JAX package's host-driven FeatureReg drivers
+  (``MICROALIGNER_TPU_FUSED_REGISTER=0``, ``MICROALIGNER_TPU_FUSED_LEVEL=0``)
+  against the port's one driver, which ignores those variables.
 
-Every variable is set with ``monkeypatch.setenv`` for both packages, and
+Every variable is set with ``monkeypatch.setenv``, and
 ``jax.clear_caches()`` follows each change: the JAX package reads
-``FEATURE_DENSE`` while it traces.
+``FEATURE_DENSE`` while it traces.  The path variables are set for both
+packages, the driver variables for the JAX package's run only.
 
 Bars and their reasons:
 * the three feature paths: coords, validity and responses equal (FAST is
@@ -18,12 +20,15 @@ Bars and their reasons:
 * the per-tile path against JAX's: coords, validity and responses equal,
   descriptors within rtol 1e-4, atol 1e-5 (tests/test_torch_features.py's
   DAISY bar: float32 sums in other orders);
-* the drivers against the port's whole route: the linear part within 1e-4
-  and the translation within 0.05 px, the JAX package's bars for its own
-  drivers (tests/test_features.py::test_fused_register_matches_legacy_driver,
-  on that test's pair); against the JAX package's same driver, the four
-  corners within 0.1 px (tests/test_torch_feature_registrator.py: RANSAC
-  draws from another random stream).
+* the port's driver against the JAX package's host drivers, on
+  tests/test_features.py::test_fused_register_matches_legacy_driver's
+  pair: the four corners within 0.1 px (tests/test_torch_feature_registrator.py:
+  RANSAC draws from another random stream), and the port's matrix equal to
+  its run in the module fixture, bit for bit;
+* the device forms of the host helpers (``_valid_transform_traced``,
+  ``_pyr_factors_of`` with ``_build_pyr_levels``, ``_mm3`` with
+  ``_tscale``) against the JAX package's host helpers: decisions, factors
+  and pyramids equal, the float32 products within 1e-6 of the float64 ones.
 """
 
 import contextlib
@@ -41,6 +46,7 @@ from microaligner_tpu.features import FeatureRegistrator as JReg
 from microaligner_tpu.features import tile_features as jtf
 from microaligner_tpu.tiles import TileGrid as JGrid
 from microaligner_tpu_torch.features import FeatureRegistrator as TReg
+from microaligner_tpu_torch.features import registrator as treg
 from microaligner_tpu_torch.features import tile_features as ttf
 from microaligner_tpu_torch.tiles import TileGrid
 
@@ -126,7 +132,7 @@ def test_dense_gate_matches_jax(env, monkeypatch):
         assert ttf._per_tile_forced() == jtf._per_tile_forced()
 
 
-# -- the host-driven FeatureReg drivers -----------------------------------------
+# -- the JAX package's host-driven FeatureReg drivers ------------------------
 
 def _corners(shape):
     h, w = shape
@@ -143,7 +149,7 @@ def _configure(reg, ref, mov):
 @pytest.fixture(scope="module")
 def legacy_pair():
     """tests/test_features.py::test_fused_register_matches_legacy_driver's
-    pair and the port's whole-route matrix on it."""
+    pair and the port's matrix on it."""
     rng = _seeded("tests/test_features.py::TestEndToEnd::test_fused_register_matches_legacy_driver")
     ref = _textured(rng, 420, 440, 2.0)
     fwd = cv.getRotationMatrix2D((220.0, 210.0), 1.0, 1.0)
@@ -158,15 +164,17 @@ def legacy_pair():
 
 @pytest.mark.parametrize("variable", ["FUSED_REGISTER", "FUSED_LEVEL"])
 def test_host_driver_matches_whole_and_jax(variable, legacy_pair, monkeypatch):
+    """The port's one driver against the JAX package's host driver that
+    ``variable=0`` picks, set for the JAX package's run only."""
     ref, mov, whole = legacy_pair
-    _set(monkeypatch, **{variable: "0"})
+    _set(monkeypatch)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         got = _configure(TReg(device="cpu"), ref, mov).register()
     log = buf.getvalue()
     assert log.count("Pyramid factor") == 3 and log.count("    Iteration") == 6
-    np.testing.assert_allclose(got[:, :2], whole[:, :2], atol=1e-4)
-    np.testing.assert_allclose(got[:, 2], whole[:, 2], atol=0.05)
+    np.testing.assert_array_equal(got, whole)
+    _set(monkeypatch, **{variable: "0"})
     with contextlib.redirect_stdout(io.StringIO()):
         want = _configure(JReg(), ref, mov).register()
     pts = _corners(ref.shape)
@@ -174,35 +182,46 @@ def test_host_driver_matches_whole_and_jax(variable, legacy_pair, monkeypatch):
 
 
 def test_host_driver_without_reference_features(monkeypatch):
-    """A blank reference has no features: the per-level driver logs why, as
-    the JAX package does, and returns the identity."""
+    """A blank reference has no features: the JAX package's per-level
+    driver logs why and returns the identity; the port's driver returns the
+    identity too, every round logged as rejected."""
     ref = np.zeros((220, 230), np.uint8)
     mov = _textured(np.random.default_rng(3), 220, 230, 2.0)
-    _set(monkeypatch, FUSED_REGISTER="0")
     logs, mats = [], []
-    for reg in (TReg(device="cpu"), JReg()):
+    for reg, env in ((TReg(device="cpu"), {}), (JReg(), dict(FUSED_REGISTER="0"))):
+        _set(monkeypatch, **env)
         reg.num_pyr_lvl, reg.num_iterations, reg.tile_size, reg.use_full_res_img = 1, 2, 500, False
         reg.ref_img, reg.mov_img = ref, mov
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             mats.append(reg.register())
         logs.append(buf.getvalue())
-    assert logs[0] == logs[1]
-    assert "No usable reference features" in logs[0]
+    assert "No usable reference features" in logs[1]
+    assert logs[0].count("    Iteration") == logs[0].count("    Worse alignment than before") == 2
+    assert "Better alignment" not in logs[0]
     np.testing.assert_array_equal(mats[0], np.eye(2, 3))
     np.testing.assert_array_equal(mats[1], np.eye(2, 3))
 
 
 def test_host_helpers_match_jax():
+    """The device forms the port keeps against the JAX package's host
+    helpers on the same inputs: the gate's validity check, the pyramid and
+    its factors, and the matrix product with the translation rescale."""
     mats = [np.array([[1.01, -0.02, 3.5], [0.02, 1.01, -2.25]]), np.array([[0.99, 0.01, -1.0], [-0.01, 0.99, 0.5]])]
-    np.testing.assert_array_equal(TReg._multiply_transform_matrices(mats), JReg._multiply_transform_matrices(mats))
-    np.testing.assert_array_equal(TReg._rescale_t_mat(mats[0], 0.25), JReg._rescale_t_mat(mats[0], 0.25))
+    hom = [torch.from_numpy(np.vstack([m, [0, 0, 1]]).astype(np.float32)) for m in mats]
+    np.testing.assert_allclose(treg._mm3(hom[0], hom[1])[:2].numpy(), JReg._multiply_transform_matrices(mats),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose((hom[0] * treg._tscale(0.25, "cpu"))[:2].numpy(), JReg._rescale_t_mat(mats[0], 0.25),
+                               rtol=1e-6, atol=1e-6)
     t, j = TReg(device="cpu"), JReg()
     for mat in (mats[0], np.array([[5.0, 0, 0], [0, 5.0, 0]]), np.array([[1.0, 0, 500.0], [0, 1.0, 0]])):
-        assert t._check_if_valid_transform(mat, (100, 100)) == j._check_if_valid_transform(mat, (100, 100))
+        est = torch.from_numpy(np.vstack([mat, [0, 0, 1]]).astype(np.float32))
+        assert bool(treg._valid_transform_traced(est, (100, 100))) == j._check_if_valid_transform(mat, (100, 100))
     img = _textured(np.random.default_rng(4), 250, 230, 2.0)
-    pyr, factors = t._generate_img_pyr(torch.from_numpy(img))
+    factors = t._pyr_factors_of(img.shape)
+    pyr = treg._build_pyr_levels(torch.from_numpy(img), factors)
     jpyr, jfactors = j._generate_img_pyr(img)
     assert factors == jfactors == [2]
+    assert len(pyr) == len(jpyr)
     for a, b in zip(pyr, jpyr):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))

@@ -4,14 +4,16 @@ package's same routes, on the same numpy inputs:
 * the strict-parity per-tile route (``MICROALIGNER_TPU_FLOW_DENSE=0``): the
   per-tile flow, its fused post-warp, the per-tile warp, the per-plane and
   z-stack applies, and the chunk size ``MICROALIGNER_TPU_FLOW_TILE_BATCH``;
-* ``MICROALIGNER_TPU_WHOLE_REGISTER=0`` (the JAX package's per-level carry
-  driver; in the port the same carry loop as its default) and the
-  stepwise host driver (``MICROALIGNER_TPU_CARRY_LEVEL=0``), with a rejected
-  middle level, a single-level pyramid, and on the per-tile route;
+* the port's one driver, the carry loop, against the JAX package's
+  per-level carry driver (``MICROALIGNER_TPU_WHOLE_REGISTER=0``) and its
+  stepwise host driver (``MICROALIGNER_TPU_CARRY_LEVEL=0``), with a
+  rejected middle level, a single-level pyramid, and on the per-tile route;
+  the port ignores both variables;
 * the port's registrator against ``scripts/reference_recon.py`` (cv2 and
   sklearn), on both ``FLOW_DENSE`` routes.
 
-Every variable is set with ``monkeypatch.setenv`` for both packages, and
+Every route variable is set with ``monkeypatch.setenv`` for both
+packages, the driver variables for the JAX package's run only, and
 ``jax.clear_caches()`` follows each change: the JAX package reads
 ``FLOW_DENSE`` while it traces, so a cached trace would keep the old route.
 
@@ -30,9 +32,12 @@ Bars and their reasons:
   per-tile warp bit for bit;
 * the drivers: the same accept/reject at every level, gate scores within
   5e-5 and flow mean < 1e-3 px, max < 0.05 px against JAX (the bars of
-  tests/test_torch_optflow_engine.py); the port's whole driver against its
-  per-level and stepwise ones within 1e-4 px, the JAX package's bar for
-  whole against per-level (tests/test_optflow_engine.py);
+  tests/test_torch_optflow_engine.py); the port's flow equal to its run
+  computed once a case, bit for bit;
+* the carry loop's ``pyr_up`` and ``compose_flows_tiled`` against the JAX
+  package's ``_upscale_flow_to_full_res`` and ``_merge_list_of_flows``:
+  within 1e-5 and 1e-4 px (the same formulas; XLA contracts multiply-adds
+  into FMAs, the port rounds each);
 * the reference reconstruction: tests/test_e2e_reference_recon.py's bars,
   warped MSE < 1e-3 in unit range and interior flow mean < 0.05 px.
 """
@@ -56,8 +61,9 @@ from microaligner_tpu.optflow import warper as jwarper
 from microaligner_tpu.optflow.registrator import OptFlowRegistrator as JReg
 from microaligner_tpu.pipeline.runner import _apply_flow_plane as j_apply
 from microaligner_tpu.tiles import TileGrid as JGrid
+from microaligner_tpu_torch.ops import mutual_info as tmi
+from microaligner_tpu_torch.ops.filters import pyr_up
 from microaligner_tpu_torch.optflow import flow_calc as tfc
-from microaligner_tpu_torch.optflow import registrator as treg
 from microaligner_tpu_torch.optflow import warper as twarper
 from microaligner_tpu_torch.pipeline.runner import _apply_flow_plane, _apply_flow_planes
 from microaligner_tpu_torch.tiles import TileGrid
@@ -264,6 +270,7 @@ def test_apply_flow_planes_per_tile_equals_per_plane(monkeypatch):
 
 # -- the drivers --------------------------------------------------------------
 
+# the JAX package's variable that picks each of its drivers; the port has one
 DRIVERS = {"per-level": "WHOLE_REGISTER", "stepwise": "CARRY_LEVEL"}
 
 
@@ -288,7 +295,8 @@ def _reject_middle(monkeypatch, middle_shape):
     """Make the gate reject the level of ``middle_shape`` in both packages:
     its first score of a level (``mi_after``, the JAX package's and the
     port's order) drops by 10.  The JAX package imports ``mi_tiled_traced``
-    while it traces ``_fused_level``, the port at import."""
+    while it traces ``_fused_level``; the port's ``gate_scores`` looks it up
+    in ``ops/mutual_info.py`` on each call."""
     from microaligner_tpu.ops import mutual_info as jmi
 
     def rejecting(orig):
@@ -303,7 +311,7 @@ def _reject_middle(monkeypatch, middle_shape):
         return gate
 
     monkeypatch.setattr(jmi, "mi_tiled_traced", rejecting(jmi.mi_tiled_traced))
-    monkeypatch.setattr(treg, "mi_tiled_traced", rejecting(treg.mi_tiled_traced))
+    monkeypatch.setattr(tmi, "mi_tiled_traced", rejecting(tmi.mi_tiled_traced))
     jax.clear_caches()
 
 
@@ -312,20 +320,22 @@ CASES = {
     "rejected-middle-x4": dict(levels=2, full_res=True, bug=True, reject=(210, 230), dense="1"),
     # one level at half size: accept upscales with one pyrUp from the flow, not doubled
     "single-level": dict(levels=1, full_res=False, bug=False, reject=None, dense="1"),
-    # 3 levels on the per-tile route: its flow, pre-warp and post-warp under each driver
+    # 3 levels on the per-tile route: its flow, pre-warp and post-warp against each JAX driver
     "per-tile": dict(levels=2, full_res=True, bug=False, reject=None, dense="0"),
 }
 
 
 @pytest.fixture(scope="module")
 def whole_runs():
-    """The port's whole driver on each case, computed once."""
+    """The port's driver on each case, computed once."""
     return {}
 
 
 @pytest.mark.parametrize("case", list(CASES))
 @pytest.mark.parametrize("driver", list(DRIVERS))
 def test_driver_matches_jax_and_whole(driver, case, monkeypatch, whole_runs):
+    """The port's driver against the JAX package's driver ``driver``,
+    whose variable is set for the JAX package's run only."""
     params = CASES[case]
     ref, mov = _reg_pair()
     _route(monkeypatch, params["dense"])
@@ -335,18 +345,20 @@ def test_driver_matches_jax_and_whole(driver, case, monkeypatch, whole_runs):
     if case not in whole_runs:
         whole = _configure(port.OptFlowRegistrator(device="cpu"), *args)
         whole_runs[case] = (whole.register(), whole.last_scores)
-    monkeypatch.setenv(f"MICROALIGNER_TPU_{DRIVERS[driver]}", "0")
-    jax.clear_caches()
-    buf = io.StringIO()  # the JAX package reports its gate scores only in its log
-    with contextlib.redirect_stdout(buf):
-        jflow = _configure(JReg(), *args).register()
-    jscores = [(float(line.split("after:")[1].split("|")[0]), float(line.split("before:")[1]))
-               for line in buf.getvalue().splitlines() if "MI score after" in line]
     treg_ = _configure(port.OptFlowRegistrator(device="cpu"), *args)
     dev_flow = treg_.register_device()
     assert isinstance(dev_flow, torch.Tensor) and dev_flow.device.type == "cpu"
     tflow = dev_flow.numpy()
     tscores = [(a, b) for _, a, b in treg_.last_scores]
+    with monkeypatch.context() as mp:
+        mp.setenv(f"MICROALIGNER_TPU_{DRIVERS[driver]}", "0")
+        jax.clear_caches()
+        buf = io.StringIO()  # the JAX package reports its gate scores only in its log
+        with contextlib.redirect_stdout(buf):
+            jflow = _configure(JReg(), *args).register()
+    jax.clear_caches()
+    jscores = [(float(line.split("after:")[1].split("|")[0]), float(line.split("before:")[1]))
+               for line in buf.getvalue().splitlines() if "MI score after" in line]
     assert tflow.shape == jflow.shape == (420, 460, 2)
     assert len(tscores) == len(jscores) == params["levels"] + params["full_res"]
     for (ja, jb), (ta, tb) in zip(jscores, tscores):
@@ -358,31 +370,33 @@ def test_driver_matches_jax_and_whole(driver, case, monkeypatch, whole_runs):
     assert err.mean() < 1e-3 and err.max() < 0.05, (err.mean(), err.max())
     wflow, wscores = whole_runs[case]
     assert [a > b for _, a, b in wscores] == [a > b for a, b in tscores]
-    np.testing.assert_allclose(tflow, wflow, atol=1e-4)
+    np.testing.assert_array_equal(tflow, wflow)
 
 
 def test_driver_helpers_match_jax():
-    """``_upscale_flow_to_full_res`` (a pyrUp of the flow, values kept) and
-    ``_merge_list_of_flows`` against the JAX package's on the same inputs.
-    At factor 4 the reference's quirk pyrUps the original flow straight to
-    the full size, which ``cv.pyrUp`` refuses: the port raises, where the
-    JAX package returns a flow of another shape (212 rows for 420)."""
+    """The carry loop's ``pyr_up`` and ``compose_flows_tiled`` against the
+    JAX package's ``_upscale_flow_to_full_res`` (a pyrUp of the flow,
+    values kept) and ``_merge_list_of_flows`` on the same inputs.  At
+    factor 4 the reference's quirk pyrUps the original flow straight to the
+    full size, which ``cv.pyrUp`` refuses: the port's ``pyr_up`` raises,
+    where the JAX package returns a flow of another shape (212 rows for
+    420)."""
     ref, mov = _reg_pair()
-    jr, tr = JReg(), port.OptFlowRegistrator(device="cpu")
-    for reg in (jr, tr):
-        reg.tile_size, reg.overlap, reg.num_iterations = 150, 50, 2
-        reg.ref_img, reg.mov_img = ref, mov
-    # the drivers call it on their last level, whose factor is 2 (or 1, a no-op)
+    jr = JReg()
+    jr.tile_size, jr.overlap, jr.num_iterations = 150, 50, 2
+    jr.ref_img, jr.mov_img = ref, mov
+    # the JAX drivers call it on their last level, whose factor is 2 (or 1, a no-op)
     small = _smooth_flow(210, 230)
     want = np.asarray(jr._upscale_flow_to_full_res(jnp.asarray(small), 2))
-    got = tr._upscale_flow_to_full_res(torch.from_numpy(small), 2).numpy()
+    got = pyr_up(torch.from_numpy(small), (420, 460)).numpy()
     assert got.shape == (420, 460, 2)
     np.testing.assert_allclose(got, want, atol=1e-5)
     with pytest.raises(ValueError, match="dstsize"):
-        tr._upscale_flow_to_full_res(torch.from_numpy(_smooth_flow(105, 115)), 4)
+        pyr_up(torch.from_numpy(_smooth_flow(105, 115)), (420, 460))
     f1, f2 = _smooth_flow(420, 460), _smooth_flow(420, 460, amp=1.0)[::-1].copy()
+    grid = TileGrid.for_image((420, 460), 150, 50)
     np.testing.assert_allclose(
-        tr._merge_list_of_flows([torch.from_numpy(f1), torch.from_numpy(f2)]).numpy(),
+        twarper.compose_flows_tiled(torch.from_numpy(f1), torch.from_numpy(f2), grid).numpy(),
         np.asarray(jr._merge_list_of_flows([jnp.asarray(f1), jnp.asarray(f2)])), atol=1e-4)
 
 
