@@ -61,7 +61,15 @@ Run it from the repository root; with no arguments it needs one card.  Phases, e
    version on u8 textures of 20480^2, 8192^2, 2048^2 and 1024^2, timed
    there beside its operations bound (324 float32 operations a pixel at
    half of 67 TFLOP/s: none may fuse into an FMA), its bytes bound (11 a
-   pixel) and its plain version;
+   pixel) and its plain version; K8 (``check_k8``, FeatureReg's knn top-2
+   on the bf16 route, a generator of its own) at the knn's factor-2, 4 and
+   8 shapes of a registered chained_8k cycle (125,000^2, 45,000^2 and
+   20,000^2 x 200), held to the plain version on the card by
+   features/match.py's bound (2 x 605 u E) with the nearest index equal
+   where it is clear, timed beside its bound (the larger of its bf16
+   multiply-adds at 989 TFLOP/s and its bytes), the plain version and the
+   plain version's bf16 products alone (``torch.mm`` with a float32
+   output, the library yardstick);
 3. parity: a 1024^2 pair through ``OptFlowRegistrator.register_device`` on
    the card against the same pair through the plain versions on the CPU;
    then the unpaired Farneback route (``MICROALIGNER_TPU_PALLAS_POLY=1``)
@@ -288,7 +296,8 @@ class Counters:
     are summed."""
 
     def __init__(self):
-        from microaligner_tpu_torch.ops import kernel_agg, kernel_dog, kernel_matrices, kernel_poly, kernel_sample as ks
+        from microaligner_tpu_torch.ops import kernel_agg, kernel_dog, kernel_knn, kernel_matrices, kernel_poly
+        from microaligner_tpu_torch.ops import kernel_sample as ks
 
         # the bf16 entries' launches, a part of their wrapper's
         self.typed = {"K2 bf16": kernel_poly.poly_pair_m, "K3 bf16": kernel_agg.smooth5_solve,
@@ -296,7 +305,7 @@ class Counters:
         self.wrappers = {"K1": (ks.sample_displaced,), "K2": (kernel_poly.poly_pair_m,),
                          "K3": (kernel_agg.smooth5_solve,), "K4": (kernel_matrices.update_matrices,),
                          "K5": (ks.sample_displaced_multi, ks.sample_band_multi), "K6": (kernel_poly.poly_exp5,),
-                         "K7": (kernel_dog.dog_u8,)}
+                         "K7": (kernel_dog.dog_u8,), "K8": (kernel_knn.top2_bf16,)}
         self.plains = {"K1": (ks.sample_displaced_plain,), "K2": (kernel_poly.poly_pair_m_plain,),
                        "K3": (kernel_agg.smooth5_solve_plain,), "K4": (kernel_matrices.update_matrices_plain,),
                        "K5": (ks.sample_displaced_multi_plain, ks.sample_band_multi_plain),
@@ -745,6 +754,83 @@ def check_k7(dev, rng, sizes=(20480, 8192, 2048, 1024)) -> dict:
             f"and {bytes_ms:.4f} ms of bytes ({100 * line['share']:.1f}% of the bound); plain {plain_ms:.2f} ms")
         del img
     out.update({k: out["sizes"][sizes[0]][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+    return out
+
+
+# FeatureReg's knn in a registered chained_8k cycle: (query rows, train rows) of the factor-2, 4 and 8 levels
+K8_SHAPES = ((125_000, 125_000), (45_000, 45_000), (20_000, 20_000))
+
+
+def k8_descriptors(gen, n, width, dev) -> torch.Tensor:
+    """``n`` unit-norm non-negative rows (as DAISY's), made on ``dev``."""
+    x = torch.rand((n, width), device=dev, generator=gen) ** 3
+    return x / x.norm(dim=1, keepdim=True)
+
+
+def check_k8(dev, rng, shapes=K8_SHAPES, width=200, valid_share=0.63) -> dict:
+    """K8, FeatureReg's knn top-2 on the bf16 route, at the knn's shapes in
+    a registered chained_8k cycle (about ``valid_share`` of each side's rows
+    valid, as ``features.keypoint_valid_pct`` reads there): against the
+    plain version on the card (d1 and d2 within 2 x 605 u E of each other,
+    u = 2^-24, E = |q|^2 + max |t|^2, features/match.py's bound on either;
+    the nearest index equal wherever the plain version's d1 beats its
+    runner-up by twice that), timed beside its bound (the larger of its
+    bf16 multiply-adds over 13 k-steps of 16 at 989 TFLOP/s and its bytes
+    over 3.35 TB/s), the plain version and the plain version's bf16 products
+    alone (``torch.mm`` with a float32 output, chunk by chunk: the library
+    yardstick).  The kernels entry reports the factor-2 shape."""
+    from microaligner_tpu_torch.ops import kernel_knn
+    from microaligner_tpu_torch.ops.filters import product_f32
+
+    gen = device_generator(rng, dev)
+    out = {"max_abs_err": 0.0, "sizes": {}}
+    for nq, nt in shapes:
+        train = k8_descriptors(gen, nt, width, dev)
+        query = train[torch.randint(0, nt, (nq,), device=dev, generator=gen)]
+        query = query + 0.05 * torch.rand(query.shape, device=dev, generator=gen) * torch.randn(
+            query.shape, device=dev, generator=gen)
+        query = query.abs() / query.abs().norm(dim=1, keepdim=True)
+        valid = torch.rand(nt, device=dev, generator=gen) < valid_share
+        q_op, t_op = query.to(torch.bfloat16), train.to(torch.bfloat16)
+        qn, tn = torch.sum(query * query, dim=1), torch.sum(train * train, dim=1)
+        kernel_knn.top2_bf16.launches = 0
+        d1, d2, i1 = kernel_knn.top2_bf16(q_op, t_op, qn, tn, valid)
+        p1, p2, pi = kernel_knn.top2_plain(q_op, t_op, qn, tn, valid)
+        torch.cuda.synchronize()
+        require(kernel_knn.top2_bf16.launches == 1, f"K8 {nq} x {nt}: {kernel_knn.top2_bf16.launches} launches")
+        bar = 2 * 605 * 2.0**-24 * (qn.double() + float(tn[valid].max()))
+        err = max(float((d1.double() - p1.double()).abs().max()), float((d2.double() - p2.double()).abs().max()))
+        within = bool(((d1.double() - p1.double()).abs() <= bar).all() and
+                      ((d2.double() - p2.double()).abs() <= bar).all())
+        clear = (p2.double() - p1.double()) > 2 * bar
+        same = bool(torch.equal(i1[clear], pi[clear]))
+        require(within and same, f"K8 {nq} x {nt}: max |K8 - plain| {err:.3e} over the bar ({within}) or a "
+                                 f"nearest index differs where it is clear ({same})")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        del d1, d2, i1, p1, p2, pi
+        ms = cuda_ms(lambda: kernel_knn.top2_bf16(q_op, t_op, qn, tn, valid), 5)
+        plain_ms = cuda_ms(lambda: kernel_knn.top2_plain(q_op, t_op, qn, tn, valid), 2)
+        step = max(1, kernel_knn.CHUNK_ELEMS // nt)
+
+        def products():
+            for s in range(0, nq, step):
+                product_f32(q_op[s : s + step], t_op.T)
+
+        library_ms = cuda_ms(products, 2)
+        ops_ms = 2.0 * nq * nt * 208 / H100_BF16_TC_FLOPS * 1e3
+        bytes_ms = ((nq + nt) * width * 2 + (nq + nt) * 4 + nt + nq * 16) / H100_BYTES_PER_S * 1e3
+        line = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "ops_bound_ms": ops_ms,
+                "bytes_bound_ms": bytes_ms, "share": max(ops_ms, bytes_ms) / ms, "max_abs_err": err,
+                "clear_rows": int(clear.sum()), "launches": 1}
+        out["sizes"][f"{nq}x{nt}"] = line
+        log(f"[kernels] K8 {nq} x {nt} x {width}: within 2 x 605 u E of the plain version (max {err:.3e}), "
+            f"nearest index equal on {line['clear_rows']} clear rows; {ms:.3f} ms against {ops_ms:.3f} ms of "
+            f"operations and {bytes_ms:.4f} ms of bytes ({100 * line['share']:.1f}% of the bound); plain "
+            f"{plain_ms:.1f} ms, its bf16 products alone {library_ms:.1f} ms")
+        del train, query, q_op, t_op, qn, tn, valid
+    first = out["sizes"][f"{shapes[0][0]}x{shapes[0][1]}"]
+    out.update({k: first[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
     return out
 
 
@@ -2759,10 +2845,10 @@ def cross_term_timing(dev, gen, slots: int, reps=10) -> dict:
     the larger of its bytes (operands read once, the float32 output written
     once) over 3.35 TB/s and its multiply-adds over the 989 TFLOP/s of the
     bf16 tensor cores or the 67 TFLOP/s of float32."""
-    from microaligner_tpu_torch.features.match import _CHUNK_ELEMS
     from microaligner_tpu_torch.ops.filters import ieee_float32, product_f32
+    from microaligner_tpu_torch.ops.kernel_knn import CHUNK_ELEMS
 
-    rows = _CHUNK_ELEMS // slots
+    rows = CHUNK_ELEMS // slots
     train = torch.randn(slots, 200, device=dev, generator=gen)
     train /= train.norm(dim=1, keepdim=True)
     query = train[:rows].clone()
@@ -3353,6 +3439,7 @@ def main():
     # a generator of its own: the phases after it draw the same data as before the typed entries came
     kernels.update(check_typed(dev, np.random.default_rng(20261017)))
     kernels["K7"] = check_k7(dev, np.random.default_rng(20261020))
+    kernels["K8"] = check_k8(dev, np.random.default_rng(20261025))
     report["parity"] = parity_run(dev, rng)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -3395,7 +3482,8 @@ def main():
                "K2 bf16": ("poly_pair_m[bf16]", "poly.cu", "microaligner_tpu/ops/pallas_poly.py:172"),
                "K3 bf16": ("smooth5_solve[bf16]", "agg_tc.cu", "microaligner_tpu/ops/pallas_agg.py:160"),
                "K4 bf16": ("update_matrices[bf16]", "matrices.cu", "microaligner_tpu/ops/pallas_matrices.py:63"),
-               "K7": ("dog_u8", "dog.cu", "none: the JAX package leaves the DoG to XLA")}
+               "K7": ("dog_u8", "dog.cu", "none: the JAX package leaves the DoG to XLA"),
+               "K8": ("top2_bf16", "knn.cu", "none: the JAX package leaves its knn to XLA")}
     # each path's launches, counted from 0 just before it and read just after
     paths = ("main", "unpaired", "zstack", "cli_4096", "routes_parity", "routes_per_tile_20480", "routes_cli_4096",
              "routes_feature", "routes_strict", "cli_20480", "feature", "chained_4096", "chained_20480", "auto",

@@ -11,10 +11,12 @@ Two routes for the cross term, as the JAX package picks them
 
 * float32 (the CPU, or the variable ``1``): a float32 product, TF32 off;
 * bf16 (the card, unless the variable is ``1``): q and t rounded to bf16
-  (round to nearest even), their products summed in float32
-  (``ops/filters.py::product_f32``), while |q|^2 and |t|^2 stay the float32
-  sums of the unrounded descriptors.  So d = |q|^2 + |t|^2 - 2 q~.t~ is a
-  mixed formula, not a distance between rounded vectors.
+  (round to nearest even), their products summed in float32, while |q|^2
+  and |t|^2 stay the float32 sums of the unrounded descriptors.  So
+  d = |q|^2 + |t|^2 - 2 q~.t~ is a mixed formula, not a distance between
+  rounded vectors.  On the card the whole top-2 is one launch of K8
+  (``ops/kernel_knn.py``), which keeps the distances in registers; on the
+  CPU the plain version sums through ``ops/filters.py::product_f32``.
 
 Near-ties.  The CPU's BLAS and cuBLAS sum in different orders, so a query
 whose ratio test lies within float32 rounding of its threshold could pass
@@ -46,7 +48,9 @@ u = 2^-24 and E = |q|^2 + |t|^2:
   cores may truncate each addition (an error up to 2 u), so 2 q~.t~ is
   within 2 * 199 * 2u * 0.504 E = 402 u E; with the three additions a
   distance is within 605 u E, the test within 1.25 times that, under
-  2^-14 of the scale; twice it is TOL.
+  2^-14 of the scale; twice it is TOL.  The argument holds for any order
+  of the float32 sums: cuBLAS's (a wgmma kernel), K8's wgmma k-steps
+  and the CPU's.
 
 The nearest index of a match that passes is never a near-tie on either
 route: it beats the runner-up by more than 3/4 of d2, and d2 is then more
@@ -58,13 +62,11 @@ from __future__ import annotations
 import torch
 
 from microaligner_tpu_torch.features.routes import match_operand_dtype
-from microaligner_tpu_torch.ops.filters import ieee_float32, product_f32
+from microaligner_tpu_torch.ops import kernel_knn
 from microaligner_tpu_torch.utils.logging import counter, profiling_enabled, span
 
 __all__ = ["knn_top2", "match_descriptors", "near_ties"]
 
-_BIG = 3.4e38
-_CHUNK_ELEMS = 1 << 27  # distance entries per query chunk
 # the near-tie rule of each route (module docstring): TOL and kappa
 _TIE_TOL = {torch.float32: 2.0**-14, torch.bfloat16: 2.0**-13}
 _KAPPA = {torch.float32: 1.0, torch.bfloat16: 1.134}
@@ -72,39 +74,33 @@ _KAPPA = {torch.float32: 1.0, torch.bfloat16: 1.134}
 near_ties = {"calls": 0, "rows": 0, "max": 0}
 
 
+def k8_route(query: torch.Tensor, operand_dtype: torch.dtype) -> bool:
+    """Whether :func:`_top2` launches K8 (``ops/kernel_knn.py``): float32
+    descriptors on the card with bf16 operands, the card's default route.
+    The CPU, the float32 route and the float64 re-decision take the plain
+    version."""
+    return query.device.type == "cuda" and query.dtype == torch.float32 and operand_dtype == torch.bfloat16
+
+
 def _top2(query: torch.Tensor, train: torch.Tensor, t_valid: torch.Tensor, chunk: int,
           operand_dtype: torch.dtype = torch.float32):
-    """``(d1, d2, idx1, |q|^2, |t|^2)`` in the inputs' dtype, ``chunk``
-    query rows at a time, fewer when a chunk would pass 2**27 entries.  The
-    cross term takes ``operand_dtype`` operands: bf16 rounds both sides and,
-    for float32 inputs, sums in float32 (:func:`product_f32`), for float64
-    inputs in float64; the norms are always the unrounded inputs'."""
+    """``(d1, d2, idx1, |q|^2, |t|^2)`` in the inputs' dtype.  The cross
+    term takes ``operand_dtype`` operands: bf16 rounds both sides and, for
+    float32 inputs, sums in float32, for float64 inputs in float64; the
+    norms are always the unrounded inputs'.  On :func:`k8_route` one K8
+    launch, otherwise the plain version, ``chunk`` query rows at a time."""
     if operand_dtype not in _TIE_TOL:
         raise ValueError(f"knn: operand dtype {operand_dtype} is neither float32 nor bf16")
     qn = torch.sum(query * query, dim=1)
     tn = torch.sum(train * train, dim=1)
-    tmask = torch.where(t_valid, 0.0, _BIG).to(query.dtype)
-    step = max(1, min(chunk, _CHUNK_ELEMS // max(1, train.shape[0])))
     q_op, t_op = query, train
     if operand_dtype == torch.bfloat16:
-        q_op, t_op = query.to(torch.bfloat16), train.to(torch.bfloat16)
+        q_op, t_op = query.to(torch.bfloat16).contiguous(), train.to(torch.bfloat16).contiguous()
+        if k8_route(query, operand_dtype):
+            return (*kernel_knn.top2_bf16(q_op, t_op, qn, tn, t_valid), qn, tn)
         if query.dtype != torch.float32:  # the float64 re-decision of the mixed formula
             q_op, t_op = q_op.to(query.dtype), t_op.to(query.dtype)
-    d1s, d2s, i1s = [], [], []
-    with ieee_float32():
-        for s in range(0, query.shape[0], step):
-            qs = q_op[s : s + step]
-            cross = product_f32(qs, t_op.T) if qs.dtype == torch.bfloat16 else torch.matmul(qs, t_op.T)
-            d = qn[s : s + step, None] + tn[None, :] - 2.0 * cross + tmask[None, :]
-            del cross
-            d.clamp_min_(0.0)
-            d1, i1 = torch.min(d, dim=1)
-            d.scatter_(1, i1[:, None], _BIG)  # the nearest out: the runner-up is the min
-            d1s.append(d1)
-            d2s.append(torch.amin(d, dim=1))
-            i1s.append(i1)
-            del d
-    return torch.cat(d1s), torch.cat(d2s), torch.cat(i1s), qn, tn
+    return (*kernel_knn.top2_plain(q_op, t_op, qn, tn, t_valid, chunk), qn, tn)
 
 
 def knn_top2(query: torch.Tensor, train: torch.Tensor, q_valid: torch.Tensor,
@@ -130,8 +126,9 @@ def match_descriptors(des_ref: torch.Tensor, des_mov: torch.Tensor, ref_valid: t
 
     Under ``MICROALIGNER_TPU_PROFILE`` each call records a ``features.knn``
     counter (capacity and valid rows of both sides, the valid counts as
-    device scalars, the descriptor width, the operand dtype and the
-    near-tie rows) and the re-decision is a ``features.near_ties`` span."""
+    device scalars, the descriptor width, the operand dtype, the near-tie
+    rows and the ``path``, ``"k8"`` or ``"plain"``) and the re-decision is
+    a ``features.near_ties`` span."""
     if operand_dtype is None:
         operand_dtype = match_operand_dtype(des_mov.device)
     r2 = ratio * ratio
@@ -145,7 +142,8 @@ def match_descriptors(des_ref: torch.Tensor, des_mov: torch.Tensor, ref_valid: t
     if profiling_enabled():
         counter("features.knn", query_rows=query.shape[0], train_rows=train.shape[0],
                 query_valid=mov_valid.sum(), train_valid=ref_valid.sum(), width=query.shape[1],
-                dtype=str(operand_dtype).removeprefix("torch."), ties=n)
+                dtype=str(operand_dtype).removeprefix("torch."), ties=n,
+                path="k8" if k8_route(query, operand_dtype) else "plain")
     if n:
         with span("features.near_ties", query.device, rows=n):
             e1, e2, ei, _, _ = _top2(query[sel].double(), train.double(), ref_valid, 4096, operand_dtype)

@@ -48,6 +48,7 @@ SIGNATURES = {
     "ma_smooth_rows_tc": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "ma_update_matrices": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "ma_dog_u8": (_P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P),
+    "ma_knn_top2": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
 }
 
 _lib: ctypes.CDLL | None = None

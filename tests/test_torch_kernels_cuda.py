@@ -63,6 +63,13 @@ the matches on the card equal the CPU's on that route.
 K7, the DoG of the NMI gate, rounds every product and sum where its plain
 version does: it is held bit for bit to ``dog_plain``, on its own and inside
 one ``_fused_level`` (the flow and both gate scores).
+
+K8, FeatureReg's knn top-2 on the bf16 route, sums the cross term on the
+tensor cores in its own order: it is held, with the plain version on the
+card, to the float64 truth of the route's formula by features/match.py's
+bound (2 x 605 u E), to the nearest index wherever that is clear, to exact
+ties between duplicate train rows, and ``match_descriptors`` on the card to
+the CPU's matches.
 """
 
 
@@ -872,3 +879,133 @@ def test_k7_refuses(dev):
         kernel_dog.dog_u8(img[0].to(torch.int32), 41, 5, 9)
     with pytest.raises(ValueError, match="kernel size"):
         kernel_dog.dog_u8(img[0], kernel_dog.MAX_KSIZE + 2, 11, 19)
+
+
+# -- K8: FeatureReg's knn top-2 on the bf16 route ---------------------------------------------------------------
+
+def _k8_inputs(gen, nq, nt, w, mask, dup):
+    """Unit-norm non-negative descriptors (as DAISY's), queries near train
+    rows; ``mask``: ``all`` valid, ``interleaved`` (a third invalid at
+    random), ``tiles`` (whole 128-row tiles invalid), ``one`` or ``none``
+    valid; ``dup``: every other train row of the first half repeated
+    exactly in the second half, queries near the repeated rows."""
+    train = gen.random((nt, w)) ** 3
+    if dup:
+        half = nt // 2
+        train[half : 2 * half] = train[:half]
+    train /= np.linalg.norm(train, axis=1, keepdims=True)
+    src = gen.integers(0, max(1, nt // 2) if dup else nt, nq)
+    query = train[src] + gen.normal(0.0, gen.uniform(0.005, 0.2, (nq, 1)), (nq, w))
+    query = np.abs(query) / np.linalg.norm(query, axis=1, keepdims=True)
+    valid = np.ones(nt, bool)
+    if mask == "interleaved":
+        valid = gen.random(nt) > 0.33
+    elif mask == "tiles":
+        valid[128:384] = False
+        valid[-(nt % 128 or 128):] = False
+    elif mask == "one":
+        valid[:] = False
+        valid[gen.integers(0, nt)] = True
+    elif mask == "none":
+        valid[:] = False
+    return (torch.from_numpy(query.astype(np.float32)), torch.from_numpy(train.astype(np.float32)),
+            torch.from_numpy(valid))
+
+
+def _k8_truth(query, train, valid):
+    """The bf16 route's formula in float64: float64 norms of the unrounded
+    rows, the float64 product of the bf16-rounded ones, _BIG where masked;
+    the whole distance matrix, then d1, d2 as ``top2_plain`` takes them."""
+    from microaligner_tpu_torch.ops.kernel_knn import BIG
+
+    q, t = query.double(), train.double()
+    cross = query.to(torch.bfloat16).double() @ train.to(torch.bfloat16).double().T
+    d = ((q * q).sum(1)[:, None] + (t * t).sum(1)[None, :] - 2 * cross).clamp_min(0.0)
+    d = torch.where(valid[None, :], d, BIG)
+    top = torch.topk(d, min(2, d.shape[1]), dim=1, largest=False)
+    d2 = top.values[:, 1] if d.shape[1] > 1 else torch.full((d.shape[0],), BIG, dtype=torch.float64)
+    return d, top.values[:, 0], d2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,nt,w,mask,dup", [
+    (1, 1, 200, "all", False), (1000, 2999, 200, "interleaved", False), (3000, 130, 8, "interleaved", False),
+    (129, 3000, 200, "tiles", False), (777, 2001, 200, "tiles", False), (50, 5, 200, "one", False),
+    (40, 300, 200, "none", False), (300, 1201, 200, "all", True), (257, 640, 8, "all", True),
+    (600, 1, 200, "one", False), (2, 2, 8, "all", False)],
+    ids=["1x1", "ragged", "w8", "tiles", "tiles-ragged", "one-valid", "none-valid", "dup", "dup-w8", "t1", "2x2"])
+def test_k8(gen, dev, nq, nt, w, mask, dup):
+    """K8 against the float64 truth of the bf16 route's formula (d1 and d2
+    within 2 x 605 u E, E = |q|^2 + max |t|^2, features/match.py's bound;
+    exactly _BIG where fewer than two train rows are valid; the nearest
+    index wherever d1 beats the runner-up by more than that bar), against
+    the plain version on the card by the same bars, exact duplicates as
+    one exact tie (d2 == d1, the smaller index), one launch that allocates
+    nothing but its outputs, and ``match_descriptors`` on the card's route
+    equal to the CPU's."""
+    from microaligner_tpu_torch.features.match import match_descriptors
+    from microaligner_tpu_torch.ops import kernel_knn
+
+    query, train, valid = _k8_inputs(gen, nq, nt, w, mask, dup)
+    q, t, v = query.to(dev), train.to(dev), valid.to(dev)
+    q_op, t_op = q.to(torch.bfloat16), t.to(torch.bfloat16)
+    qn, tn = torch.sum(q * q, dim=1), torch.sum(t * t, dim=1)
+    torch.cuda.synchronize()
+    launches, before = kernel_knn.top2_bf16.launches, torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    d1, d2, i1 = kernel_knn.top2_bf16(q_op, t_op, qn, tn, v)
+    torch.cuda.synchronize()
+    assert kernel_knn.top2_bf16.launches == launches + 1
+    outputs = sum(-(-x.numel() * x.element_size() // 512) * 512 for x in (d1, d2, i1))
+    assert torch.cuda.max_memory_allocated(dev) - before <= outputs
+    assert (d1.dtype, d2.dtype, i1.dtype) == (torch.float32, torch.float32, torch.int64)
+    p1, p2, pi = kernel_knn.top2_plain(q_op, t_op, qn, tn, v)
+
+    d, w1, w2 = _k8_truth(query, train, valid)
+    n_valid = int(valid.sum())
+    bar = 2 * 605 * 2.0**-24 * ((query.double() ** 2).sum(1) + float((train.double() ** 2).sum(1).max()))
+    big = torch.tensor(kernel_knn.BIG, dtype=torch.float32)
+    for got in ((d1, d2, i1), (p1, p2, pi)):
+        g1, g2, gi = (x.cpu() for x in got)
+        if n_valid == 0:
+            assert bool((g1 == big).all()) and bool((gi == 0).all())
+        else:
+            assert bool(((g1.double() - w1).abs() <= bar).all())
+        if n_valid < 2:
+            assert bool((g2 == big).all())
+        else:
+            assert bool(((g2.double() - w2).abs() <= bar).all())
+        clear = (w2 - w1 > bar) & (w1 < kernel_knn.BIG)
+        assert torch.equal(gi[clear], d.argmin(dim=1)[clear])
+        assert bool(valid[gi[w1 < kernel_knn.BIG]].all())
+    if dup:  # a query whose nearest is a repeated row: its two copies tie exactly, the first wins
+        half = nt // 2
+        first = torch.arange(nt)
+        first[half : 2 * half] -= half
+        third = torch.topk(d, 3, dim=1, largest=False).values[:, 2]
+        pair = (first[d.argmin(dim=1)] < half) & (third - w1 > bar)
+        g1, g2, gi = (x.cpu() for x in (d1, d2, i1))
+        assert int(pair.sum()) > nq // 2
+        assert torch.equal(g1[pair], g2[pair]) and torch.equal(gi[pair], first[d.argmin(dim=1)][pair])
+
+    q_valid = torch.ones(nq, dtype=torch.bool)
+    launches, plain = kernel_knn.top2_bf16.launches, kernel_knn.top2_plain.calls
+    good, idx = match_descriptors(t, q, v, q_valid.to(dev), operand_dtype=torch.bfloat16)
+    assert kernel_knn.top2_bf16.launches == launches + 1
+    assert kernel_knn.top2_plain.calls - plain <= 1  # the float64 re-decision of near-ties, if any
+    want_good, want_idx = match_descriptors(train, query, valid, q_valid, operand_dtype=torch.bfloat16)
+    assert torch.equal(good.cpu(), want_good)
+    assert torch.equal(idx.cpu()[want_good], want_idx[want_good])
+
+
+@pytest.mark.cuda
+def test_k8_refuses(dev):
+    from microaligner_tpu_torch.ops import kernel_knn
+
+    q, t = torch.zeros((5, 200), device=dev, dtype=torch.bfloat16), torch.zeros((7, 200), device=dev,
+                                                                               dtype=torch.bfloat16)
+    qn, tn, v = (torch.zeros(5, device=dev), torch.zeros(7, device=dev), torch.ones(7, dtype=torch.bool, device=dev))
+    with pytest.raises(ValueError, match="start on 16 bytes"):
+        kernel_knn.top2_bf16(torch.zeros(5 * 200 + 1, device=dev, dtype=torch.bfloat16)[1:].view(5, 200), t, qn, tn, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel_knn.top2_bf16(q, torch.zeros((200, 7), device=dev, dtype=torch.bfloat16).T, qn, tn, v)

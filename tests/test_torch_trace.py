@@ -272,6 +272,7 @@ def test_knn_counter(runs):
     assert sum(c.values["ties"] for c in knn) == on["ties"]["rows"]
     for c in knn:
         assert c.values["width"] == 200 and c.values["dtype"] == "float32"
+        assert c.values["path"] == "plain"  # K8 runs only on the card's bf16 route
         assert c.values["query_rows"] >= int(c.values["query_valid"]) > 0
         assert c.values["train_rows"] >= int(c.values["train_valid"]) > 0
     by_id = {s.id: s for s in on["spans"]}
