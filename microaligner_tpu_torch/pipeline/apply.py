@@ -2,7 +2,7 @@
 
 PyTorch counterpart of ``microaligner_tpu/pipeline/apply.py``.  The apply
 phase warps every channel/z-plane with the cycle's transform and writes
-BigTIFF planes.  Three threads keep the card busy on both sides:
+BigTIFF planes.  Threads keep the card busy on both sides:
 
 * a reader thread pulls planes from the (possibly lazy, TIFF-decoding)
   iterable, copies each into a reused ring of pinned host buffers and issues
@@ -11,11 +11,15 @@ BigTIFF planes.  Three threads keep the card busy on both sides:
   event, marks the tensor as used there (``record_stream``, so the caching
   allocator cannot hand its memory out while the copy or the warp still
   runs), and dispatches ``device_fn``;
-* a writer thread waits for the warp's event on a second side stream, copies
-  the result into a reused pinned buffer and hands it to ``write_fn``.
+* ``writers`` writer threads take the results in turn; each waits for the
+  warp's event on a second side stream, copies the result into a pinned
+  buffer of its own and hands it to ``write_fn``.  So ``write_fn`` runs on
+  several planes at once, and in no fixed order: a host copy of one plane
+  (``np.copyto``, a memmap's assignment) runs on one core, and one writer
+  would hold the card back.
 
 Pinned buffers are used only when the ``device`` passed in is a CUDA device;
-on the CPU the planes go through as host tensors.  Both worker threads
+on the CPU the planes go through as host tensors.  The worker threads
 propagate failures to the caller.  Every put into a queue checks its peer
 (the JAX package's plain ``put`` of ``_STOP`` can block forever on a full
 queue when the writer dies after the check), and a writer that is still
@@ -27,9 +31,10 @@ Under ``MICROALIGNER_TPU_PROFILE`` a call is the span ``pipeline.apply``
 ``apply.read`` (the next plane from the iterable) and ``apply.stage`` (a free
 pinned slot, the host copy, issuing the host->device copy), the caller's
 ``apply.wait_plane`` (blocked on the reader) and ``apply.warp``
-(``device_fn``, with timing events), the writer's ``apply.write`` (the
-device->host copy, then ``write_fn``).  The host threads' spans take no
-device events and never synchronise.
+(``device_fn``, with timing events), each writer's ``apply.write`` (the
+device->host copy, then ``write_fn``) and inside it ``apply.fetch`` (the
+device->host copy and the wait for it alone).  The host threads' spans take
+no device events and never synchronise.
 """
 
 from __future__ import annotations
@@ -98,18 +103,22 @@ def stream_apply(
     depth: int = 2,
     prefetch: int = 2,
     join_timeout_s: Optional[float] = None,
+    writers: int = 3,
 ):
     """For each ``(key, plane)``: write ``device_fn(plane on device)`` via
     ``write_fn``.
 
     ``device_fn`` takes the plane as a tensor on ``device`` and returns a
     tensor (dispatched asynchronously on a CUDA device).  Up to ``depth``
-    results stay in flight while the reader thread stages the next
-    ``prefetch`` planes and the writer thread drains finished ones.
+    results wait for the ``writers`` writer threads, which hold one each,
+    while the reader thread stages the next ``prefetch`` planes.
 
-    ``write_fn(key, array)`` gets a host array that is valid until it
-    returns: on a CUDA device it is a view of a reused pinned buffer, so a
-    ``write_fn`` that keeps the array must copy it.
+    ``write_fn(key, array)`` is called once a plane, from up to ``writers``
+    threads at once, so in no fixed order: it must be safe to call for two
+    keys at the same time (writes into disjoint parts of an array or a
+    memmap are).  The array is valid until it returns: on a CUDA device it
+    is a view of a reused pinned buffer, so a ``write_fn`` that keeps the
+    array must copy it.
     """
     if join_timeout_s is None:
         join_timeout_s = float(os.environ.get("MICROALIGNER_TPU_WRITER_TIMEOUT_S", "600"))
@@ -118,13 +127,13 @@ def stream_apply(
     if pinned:
         h2d = torch.cuda.Stream(device=device)
         d2h = torch.cuda.Stream(device=device)
-        in_ring, out_ring = _PinnedRing(2), _PinnedRing(1)
+        in_ring = _PinnedRing(2)
     rq: "queue.Queue" = queue.Queue(maxsize=max(1, prefetch))
     wq: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
     read_errors: list = []
     write_errors: list = []
     done = threading.Event()
-    progress = [time.monotonic()]  # last time the writer started or finished an item
+    progress = [time.monotonic()]  # last time a writer started or finished an item
 
     def to_device(plane: np.ndarray):
         host = torch.from_numpy(np.ascontiguousarray(plane))
@@ -140,7 +149,7 @@ def stream_apply(
         in_ring.in_use_until(slot, ready)
         return dev, ready
 
-    def to_host(out: torch.Tensor, ready) -> np.ndarray:
+    def to_host(out: torch.Tensor, ready, out_ring: _PinnedRing) -> np.ndarray:
         if not pinned:
             return out.cpu().numpy()
         _, staged = out_ring.stage(out.shape, out.dtype)
@@ -175,30 +184,39 @@ def stream_apply(
             _checked_put(rq, _STOP, done.is_set)
 
     def writer():
-        while True:
-            item = wq.get()
+        out_ring = _PinnedRing(1) if pinned else None
+        while not write_errors:  # a writer that failed stops the others
+            try:
+                item = wq.get(timeout=0.5)
+            except queue.Empty:
+                continue
             if item is _STOP:
                 return
             key, out, ready = item
+            item = None
             try:
                 progress[0] = time.monotonic()  # starting an item is progress
                 with span("apply.write", parent=parent, key=key, bytes=out.nbytes):
-                    write_fn(key, to_host(out, ready))
+                    with span("apply.fetch", key=key, bytes=out.nbytes):
+                        host = to_host(out, ready, out_ring)
+                    out = None
+                    write_fn(key, host)
                 progress[0] = time.monotonic()
             except Exception as e:  # propagate to the caller
                 write_errors.append(e)
                 return
 
     def writer_gone() -> bool:
-        return (bool(write_errors) or not wt.is_alive()
+        return (bool(write_errors) or not any(w.is_alive() for w in wts)
                 or time.monotonic() - progress[0] > join_timeout_s)
 
     rt = threading.Thread(target=reader, daemon=True, name="stream_apply_reader")
-    wt = threading.Thread(target=writer, daemon=True, name="stream_apply_writer")
+    wts = [threading.Thread(target=writer, daemon=True, name="stream_apply_writer") for _ in range(max(1, writers))]
     with span("pipeline.apply") as whole:
         parent = current_span()  # the worker threads' spans belong to this call
         rt.start()
-        wt.start()
+        for w in wts:
+            w.start()
         n = 0
         try:
             while True:
@@ -222,14 +240,16 @@ def stream_apply(
                     break
         finally:
             done.set()  # unblocks a reader stuck on a full rq
-            _checked_put(wq, _STOP, writer_gone)
-            # Join in slices and only give up when the writer has made NO progress
+            for _ in wts:
+                _checked_put(wq, _STOP, writer_gone)
+            # Join in slices and only give up when the writers have made NO progress
             # for ``join_timeout_s`` — a big plane to a slow disk is "slow", a dead
             # NFS mount is "hung"; a fixed-length join can't tell them apart.
             while True:
-                wt.join(timeout=min(30.0, join_timeout_s))
-                if not wt.is_alive():
+                alive = [w for w in wts if w.is_alive()]
+                if not alive:
                     break
+                alive[0].join(timeout=min(30.0, join_timeout_s))
                 if time.monotonic() - progress[0] > join_timeout_s:
                     break
             rt.join(timeout=join_timeout_s)
@@ -238,7 +258,7 @@ def stream_apply(
         raise write_errors[0]
     if read_errors:
         raise read_errors[0]
-    if wt.is_alive():
+    if any(w.is_alive() for w in wts):
         raise RuntimeError(
             f"stream_apply: writer thread made no progress for {join_timeout_s}s "
             "— output sink appears hung; planes may be unwritten"

@@ -25,15 +25,20 @@ __all__ = ["max_project_u8", "read_and_max_project_pages"]
 def max_project_u8(planes: Iterable, device) -> torch.Tensor:
     """Z-max of ``planes`` (numpy arrays or tensors of one shape and integer
     or float dtype, any iterable: a generator keeps one plane on the host)
-    on ``device``, min-max normalized to a u8 tensor (the span
-    ``pages.project`` under ``MICROALIGNER_TPU_PROFILE``)."""
+    on ``device``, min-max normalized to a u8 tensor.  Under
+    ``MICROALIGNER_TPU_PROFILE`` the call is the span ``pages.project``
+    (``planes``), and each plane's host-to-device copy a child span
+    ``pages.copy`` (``bytes``) with no timing events: a copy from pageable
+    memory already holds the host."""
     proj = None
     with span("pages.project", device) as s:
         for n, p in enumerate(planes, 1):
             t = torch.as_tensor(np.asarray(p) if not isinstance(p, torch.Tensor) else p)
             # copy in the plane's own dtype, then widen on the device; float32
             # holds every u8/u16 value exactly (torch has no max for uint16)
-            t = t.to(device).to(torch.float32)
+            with span("pages.copy", bytes=t.nbytes):
+                t = t.to(device)
+            t = t.to(torch.float32)
             proj = t if proj is None else torch.maximum(proj, t)
         if proj is None:
             raise ValueError("max_project_u8 needs at least one plane")

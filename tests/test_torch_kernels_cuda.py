@@ -592,7 +592,8 @@ def test_spans_on_card(gen, dev, monkeypatch):
     """Under MICROALIGNER_TPU_PROFILE a span on the card takes timing events
     that read the device's time without a synchronise inside the span, and
     the pinned apply's spans keep every plane: its host threads' spans take
-    no events, its warps do."""
+    no events, its warps do, and each plane's ``apply.fetch`` lies under its
+    ``apply.write``."""
     from microaligner_tpu_torch.utils import logging as plog
 
     monkeypatch.setenv("MICROALIGNER_TPU_PROFILE", "1")
@@ -613,6 +614,10 @@ def test_spans_on_card(gen, dev, monkeypatch):
     assert all(e.events is not None and plog.device_s(e) >= 0 for e in mine if e.name == "apply.warp")
     host = [e for e in mine if e.name in ("apply.read", "apply.stage", "apply.wait_plane", "apply.write")]
     assert len(host) == 6 + 5 + 6 + 5 and all(e.events is None for e in host)
+    writes = {e.id: e for e in mine if e.name == "apply.write"}
+    fetches = [e for e in mine if e.name == "apply.fetch"]
+    assert sorted(e.attrs["key"] for e in fetches) == list(range(5)) and all(e.events is None for e in fetches)
+    assert all(writes[e.parent].attrs["key"] == e.attrs["key"] for e in fetches)
 
 
 @pytest.mark.cuda

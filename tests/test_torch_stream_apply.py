@@ -14,6 +14,7 @@ import threading
 import time
 
 import numpy as np
+import pytest
 import torch
 from _bounds import bounded_call
 
@@ -32,6 +33,26 @@ def test_order_and_content(rng):
     assert set(got) == set(range(7))
     for k, p in planes:
         np.testing.assert_allclose(got[k], p * 3.0, rtol=1e-6)
+
+
+def test_writers_write_planes_at_once(rng):
+    """Each plane is written once, by one of the writer threads, and two
+    writers run ``write_fn`` at the same time: the first two planes' writes
+    wait for each other, which one writer would never get past."""
+    planes = [(i, rng.random((8, 8)).astype(np.float32)) for i in range(7)]
+    both = threading.Barrier(2, timeout=10)
+    writes = []
+
+    def write_fn(k, v):
+        if k < 2:
+            both.wait()  # raises BrokenBarrierError after 10 s alone
+        writes.append((k, threading.current_thread().name, float(v[0, 0])))
+
+    err, _ = _bounded(iter(planes), lambda p: p + 1.0, write_fn, writers=2)
+    assert err is None
+    assert sorted(k for k, _, _ in writes) == list(range(7))
+    assert {name for _, name, _ in writes} == {"stream_apply_writer"}
+    assert all(x == float(planes[k][1][0, 0] + np.float32(1.0)) for k, _, x in writes)
 
 
 def test_device_fn_gets_tensors_on_the_device(rng):
@@ -76,16 +97,17 @@ def test_writer_hang_raises():
     assert isinstance(err, RuntimeError) and "made no progress" in str(err)
 
 
-def test_writer_dies_while_queue_is_full():
-    """The writer takes plane 0 and waits until the reader has run dry, so the
-    calling thread has put plane 1 into the queue (depth 1, now full) and gone
-    on to put ``_STOP``; only then does the writer fail.  A plain blocking put
-    of ``_STOP`` would wait forever on that full queue; the port's returns and
-    raises the writer's error."""
+@pytest.mark.parametrize("writers", [1, 3])
+def test_writer_dies_while_queue_is_full(writers):
+    """Each writer takes a plane (the one writer plane 0) and waits until the
+    reader has run dry, so the calling thread has put the next plane into
+    the queue (depth 1, now full) and gone on to put ``_STOP``; only then do
+    the writers fail.  A plain blocking put of ``_STOP`` would wait forever
+    on that full queue; the port's returns and raises a writer's error."""
     exhausted = threading.Event()
 
     def planes():
-        for i in range(2):
+        for i in range(writers + 1):
             yield i, np.full((4, 4), i, np.float32)
         exhausted.set()
 
@@ -94,7 +116,7 @@ def test_writer_dies_while_queue_is_full():
         time.sleep(0.3)  # let the calling thread reach the put of _STOP
         raise RuntimeError("disk full")
 
-    err, secs = _bounded(planes(), lambda p: p, write, depth=1, prefetch=1)
+    err, secs = _bounded(planes(), lambda p: p, write, depth=1, prefetch=1, writers=writers)
     assert isinstance(err, RuntimeError) and "disk full" in str(err)
     assert secs < 10.0
 

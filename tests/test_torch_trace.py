@@ -10,8 +10,11 @@ hang under the call's ``pipeline.apply`` span, the ``[profile]`` lines are
 as before, the ``features.knn`` counter agrees with the features and with
 ``match.near_ties``, the ``features.keypoints`` counter with each call's
 keypoint rows, and every result is bit-identical to the run with
-profiling off.  On a half-blank image, on each of the three feature paths,
-the keypoint counter counts the tiles with no keypoint.
+profiling off.  Each projected page is a ``pages.copy`` span under its
+``pages.project``, and each applied plane's device-to-host copy an
+``apply.fetch`` span under its ``apply.write``.  On a half-blank image, on
+each of the three feature paths, the keypoint counter counts the tiles with
+no keypoint.
 """
 
 import contextlib
@@ -188,8 +191,8 @@ def test_span_tree_names_and_attributes(runs):
     assert names >= {"features.register", "features.reference_pyramid", "features.level", "features.find",
                      "features.match", "features.ransac", "features.gate", "optflow.register", "optflow.pyramid",
                      "optflow.level", "optflow.dog", "optflow.flow", "optflow.gate", "optflow.carry",
-                     "optflow.prewarp", "optflow.warp", "pages.project", "pipeline.apply", "apply.read",
-                     "apply.stage", "apply.wait_plane", "apply.warp", "apply.write"}
+                     "optflow.prewarp", "optflow.warp", "pages.project", "pages.copy", "pipeline.apply",
+                     "apply.read", "apply.stage", "apply.wait_plane", "apply.warp", "apply.write", "apply.fetch"}
     assert [s.attrs["factor"] for s in _named(spans, "features.level")] == FEATURE_FACTORS
     rounds = [(f, i) for f in FEATURE_FACTORS for i in range(FEATURE_ROUNDS)]
     for name in ("features.find", "features.match", "features.ransac", "features.gate"):
@@ -200,9 +203,14 @@ def test_span_tree_names_and_attributes(runs):
     assert [s.attrs["planes"] for s in _named(spans, "pages.project")] == [Z, Z, Z]
     keys = [(c, z) for c in range(CHANNELS) for z in range(Z)]
     assert [s.attrs["planes"] for s in _named(spans, "pipeline.apply")] == [len(keys), len(keys)]
-    for name in ("apply.stage", "apply.warp", "apply.write"):
+    for name in ("apply.stage", "apply.warp"):
         assert [s.attrs["key"] for s in _named(spans, name)] == keys + keys, name
-    for s in _named(spans, "apply.stage") + _named(spans, "apply.write"):
+    # the writers write in no fixed order: each apply writes every key once
+    for name in ("apply.write", "apply.fetch"):
+        for a in _named(spans, "pipeline.apply"):
+            assert sorted(s.attrs["key"] for s in _named(spans, name) if s.root == a.id) == keys, name
+        assert len(_named(spans, name)) == 2 * len(keys), name
+    for s in _named(spans, "apply.stage") + _named(spans, "apply.write") + _named(spans, "apply.fetch"):
         assert s.attrs["bytes"] == SHAPE[0] * SHAPE[1] * 2
     # a read span a plane, and one that finds the iterable exhausted
     assert [s.attrs.get("key") for s in _named(spans, "apply.read")] == keys + [None] + keys + [None]
@@ -223,6 +231,36 @@ def test_every_child_inside_its_parent(runs):
     for s in spans:
         if s.parent is None:
             assert s.root == s.id
+
+
+def test_page_copies_under_the_projection(runs):
+    """One ``pages.copy`` a projected page, each a child of its
+    ``pages.project``, their bytes the pages' bytes; no timing events."""
+    spans = runs["on"]["spans"]
+    projections = _named(spans, "pages.project")
+    copies = _named(spans, "pages.copy")
+    assert len(projections) == 3 and len(copies) == 3 * Z
+    for p in projections:
+        mine = [s for s in copies if s.parent == p.id]
+        assert len(mine) == p.attrs["planes"] == Z
+        assert sum(s.attrs["bytes"] for s in mine) == Z * SHAPE[0] * SHAPE[1] * 2
+        assert all(s.thread == p.thread and s.root == p.root for s in mine)
+    assert {s.parent for s in copies} == {p.id for p in projections}
+    assert all(s.events is None for s in copies)
+
+
+def test_fetch_under_the_write(runs):
+    """One ``apply.fetch`` a plane, each the child of that plane's
+    ``apply.write`` on the writer thread, inside it."""
+    spans = runs["on"]["spans"]
+    writes = {s.id: s for s in _named(spans, "apply.write")}
+    fetches = _named(spans, "apply.fetch")
+    assert len(fetches) == len(writes) == 2 * CHANNELS * Z
+    for s in fetches:
+        w = writes[s.parent]
+        assert s.attrs == {"key": w.attrs["key"], "bytes": w.attrs["bytes"]}
+        assert s.thread == w.thread == "stream_apply_writer" and s.events is None
+    assert len({s.parent for s in fetches}) == len(writes)
 
 
 def test_worker_thread_spans_under_the_apply(runs):
